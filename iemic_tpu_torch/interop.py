@@ -1,0 +1,60 @@
+"""Carry state from the JAX package into the port.
+
+Each function takes arrays as numpy (``np.asarray`` of a JAX array) and
+returns or installs tensors on a given device, so both packages compute
+from the same inputs.  Flat vectors use the reference's row ordering,
+the same as ``ops.stencil.to_flat`` / ``from_flat``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.stencil import from_flat
+
+F64 = torch.float64
+
+
+def tensor(a, device, dtype=F64) -> torch.Tensor:
+    """numpy array -> a tensor of its own on device (a JAX array's numpy
+    view is read-only)."""
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def state(x, l: int, m: int, n: int, device) -> torch.Tensor:
+    """Ocean state as (6, l, m, n) from field layout or a flat vector."""
+    x = np.asarray(x)
+    if x.ndim == 1:
+        return from_flat(tensor(x, device), l, m, n).contiguous()
+    return tensor(x.reshape(6, l, m, n), device)
+
+
+def stencil(An, device) -> torch.Tensor:
+    """Stencil tensor An (27, 6, 6, l, m, n)."""
+    return tensor(An, device)
+
+
+def install_state(ocean, x) -> None:
+    g = ocean.grid
+    ocean.set_state(state(x, g.l, g.m, g.n, ocean.device))
+
+
+def install_par(ocean, par) -> None:
+    """The whole 30-entry parameter vector."""
+    ocean.par = tensor(par, ocean.device)
+
+
+def install_forcing(ocean, **fields) -> None:
+    """Forcing fields by name (taux, tauy, tatm, emip, spert, ...);
+    None keeps the field unset."""
+    ocean.fields = ocean.fields._replace(**{
+        k: None if v is None else tensor(v, ocean.device)
+        for k, v in fields.items()})
+
+
+def install_land_mask(ocean, landm) -> None:
+    """A finalized padded (l+2, m+2, n+2) land mask; rebuilds every
+    mask-dependent operator of the ocean."""
+    ocean.landm = np.asarray(landm)
+    ocean._setup_mask_operators()
