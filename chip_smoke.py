@@ -1,24 +1,35 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
+    python3 chip_smoke.py --general-kernel   # and the main phase once
+                                     # more through the general-shape kernel
 
 Phases, each printing its own line:
   1. device   — the card's name and power limit (nvidia-smi); TF32 off
-  2. build    — nvcc builds the stencil kernel from iemic_tpu_torch/csrc
-  3. kernel   — the Hopper stencil matvec against its plain PyTorch
-                version on the global 96x38x12 grid (periodic and not,
-                f32 and bf16 coefficients), with CUDA-event times
+  2. build    — nvcc builds the stencil kernels from iemic_tpu_torch/csrc
+  3. kernel   — every entry point of the kernel library against the
+                plain PyTorch version, periodic and not, f32 and bf16
+                coefficients: the wide kernels on the global 96x38x12
+                grid, the general-shape kernels at 12x38x97 and 6x6x3;
+                each also on an x kept on the two edge columns in i;
+                CUDA-event times beside the bound (the bytes of the
+                coefficients whose neighbour lies in the grid, of x and
+                of y, over 3.35 TB/s) and one read of all coefficients
+                by PyTorch
   4. assembly — F and the f64 stencil tensor An of the global grid
                 computed on the card against the port on the CPU
   5. effort   — one production solve (BGS + Mixed, tol 1e-3) of the
                 configuration whose effort TESTLOG.md:139 records for
                 the JAX package (69 MV to relres 6.92e-4): the port must
-                meet the tolerance with MV within 10% of that record
+                meet the tolerance with MV within 10% of that record;
+                then both f32 kernels on that model's own Jacobian and
+                the solve's vectors against the f64 product
   6. main     — run_ocean on a copy of run/ocean/global (BGS + Mixed)
                 on the card, cut to one continuation step of three
                 Newton iterations at FGMRES tolerance 5e-2; checks the
-                exit status, kernel launches, falling |F| and every
-                solve's true relative residual (< the tolerance, so < 1)
+                exit status, that every kernel launch went through the
+                wide f32 kernel, falling |F| and every solve's true
+                relative residual (< the tolerance, so < 1)
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
@@ -26,6 +37,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -43,12 +55,19 @@ BUNDLE = os.path.join(REPO, "run", "ocean", "global")
 # |kernel - plain| <= KTOL * max|plain|: both accumulate in f32, in
 # another order
 KTOL = 2e-5
+# published peaks of one H100 SXM: device memory rate, and the f32 rate
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 # F and An on the card against the CPU, max-norm scaled
 ATOL = 1e-12
 # the JAX package's effort on the effort phase's configuration
 # (TESTLOG.md:139, variant spp60@1e-8): MV and relres at tol 1e-3
 EFFORT_TOL = 1e-3
 EFFORT_MV = 69
+# the kernel of the main path: the bundle's f32 coefficients on its
+# 96x38x12 grid take the wide kernel
+MAIN_ENTRY = "stencil_matvec_f32_wide"
 # FGMRES tolerance and Newton iterations of the main phase (see
 # _bundle_copy)
 SOLVE_TOL = 5e-2
@@ -63,55 +82,135 @@ def card() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of reps single-call times with CUDA events, after warm-up."""
-    for _ in range(warmup):
+def time_ms(fns, reps: int = 21, batches: int = 5) -> float:
+    """Device time of one call.  fns are calls of one function on
+    separate copies of its large input, taken in turn, so that no call
+    finds in the 50 MB L2 what the call before it read (the solver's
+    calls are a whole preconditioner sweep apart).  reps calls are
+    recorded into one CUDA graph, so that the host's enqueue, which takes
+    longer than the fast kernels, is not timed; CUDA events around a
+    replay, over reps; the median of batches replays."""
+    for fn in fns:
         fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for r in range(reps):
+            fns[r % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
+def needed_coefficients(l: int, m: int, n: int, periodic: bool) -> int:
+    """Coefficients of the 972 * l*m*n whose neighbour lies in the grid:
+    the others multiply a zero and need not be read."""
+    return 36 * (3 * l - 2) * (3 * m - 2) * (3 * n if periodic
+                                             else 3 * n - 2)
+
+
+def bound_ms(itemsize: int, l: int, m: int, n: int,
+             periodic: bool) -> tuple[float, str]:
+    """The least time the card could take for one matvec: the larger of
+    the bytes it must move (the needed coefficients and x read once, y
+    written once) over the memory rate and its two operations per needed
+    coefficient over the f32 rate; and which of the two it is."""
+    need = needed_coefficients(l, m, n, periodic)
+    t_bytes = (need * itemsize + 2 * 6 * l * m * n * 4) / HBM_BYTES_PER_S
+    t_ops = 2 * need / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _check_kernel(hopper, AnK, x, periodic, what):
+    """One launch against the plain version; returns (error, scale)."""
+    y = hopper.apply_stencil_prepared(AnK, x, periodic=periodic)
+    ref = hopper.apply_plain(AnK, x, periodic=periodic)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not (bool(torch.isfinite(y).all()) and err <= KTOL * scale):
+        raise AssertionError(f"kernel {what} periodic={periodic} "
+                             f"disagrees: {err:.3e} (limit {KTOL:.0e} x "
+                             f"{scale:.3e})")
+    return err, scale
+
+
 def phase_kernel(hopper, card_line: str) -> dict:
-    """Kernel against plain version at the global grid's shape."""
-    l, m, n = 12, 38, 96
-    g = torch.Generator(device="cuda").manual_seed(0)
-    An = torch.randn((27, 6, 6, l, m, n), generator=g, device="cuda",
-                     dtype=torch.float64)
-    x = torch.randn((6, l, m, n), generator=g, device="cuda",
-                    dtype=torch.float64)
+    """Every entry point of the kernel library against the plain PyTorch
+    version: the wide kernels at the global grid's shape, the
+    general-shape kernels at shapes the wide ones refuse (a row of 97,
+    and the 2DMOC fixture's 6x6x3), periodic and not, with a random x
+    and with an x kept on the two edge columns in i, where a wrong wrap
+    or zero boundary shows in every term.  Returns the record of each
+    entry point at its first shape, periodic (the bundle's setting)."""
     rec = {}
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        AnK = hopper.prepare(An, dtype)
-        for periodic in (False, True):
-            y = hopper.apply_stencil_prepared(AnK, x, periodic=periodic)
-            ref = hopper.apply_plain(AnK, x, periodic=periodic)
-            torch.cuda.synchronize()
-            err = float((y - ref).abs().max())
-            scale = float(ref.abs().max())
-            ok = bool(torch.isfinite(y).all()) and err <= KTOL * scale
-            ms = time_ms(lambda: hopper.apply_stencil_prepared(
-                AnK, x, periodic=periodic))
-            plain_ms = time_ms(lambda: hopper.apply_plain(
-                AnK, x, periodic=periodic))
-            print(f"kernel stencil_matvec_{tag} periodic={periodic} "
-                  f"shape=(27,6,6,{l},{m},{n}) max_abs_err={err:.3e} "
-                  f"(limit {KTOL:.0e} x {scale:.3e}) kernel {ms:.4f} ms "
-                  f"plain {plain_ms:.4f} ms [{card_line}]", flush=True)
-            if not ok:
-                raise AssertionError(f"kernel {tag} periodic={periodic} "
-                                     f"disagrees: {err:.3e}")
-            if periodic:      # the bundle's configuration
-                rec[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        del AnK
+    for l, m, n in ((12, 38, 96), (12, 38, 97), (6, 6, 3)):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        An = torch.randn((27, 6, 6, l, m, n), generator=g, device="cuda",
+                         dtype=torch.float64)
+        # f32, as the Krylov loop hands it over
+        x = torch.randn((6, l, m, n), generator=g, device="cuda",
+                        dtype=torch.float32)
+        edge = torch.zeros_like(x)
+        edge[..., 0], edge[..., -1] = x[..., 0], x[..., -1]
+        for dtype in (torch.float32, torch.bfloat16):
+            AnK = hopper.prepare(An, dtype)
+            entry = hopper.kernel_variant(dtype, l, m, n)
+            copies = [AnK, AnK.clone(), AnK.clone()]     # see time_ms
+            for periodic in (False, True):
+                bound, bound_by = bound_ms(AnK.element_size(), l, m, n,
+                                           periodic)
+                need = needed_coefficients(l, m, n, periodic) \
+                    * AnK.element_size()
+                before = hopper.LAUNCHES_BY_ENTRY[entry]
+                err, scale = _check_kernel(hopper, AnK, x, periodic, entry)
+                eerr, escale = _check_kernel(hopper, AnK, edge, periodic,
+                                             entry + " (edge columns)")
+                if hopper.LAUNCHES_BY_ENTRY[entry] != before + 2:
+                    raise AssertionError(f"{entry} was not the kernel "
+                                         f"launched at {(l, m, n)}")
+                ms = time_ms([lambda a=a: hopper.apply_stencil_prepared(
+                    a, x, periodic=periodic) for a in copies])
+                plain_ms = time_ms([lambda a=a: hopper.apply_plain(
+                    a, x, periodic=periodic) for a in copies])
+                print(f"kernel {entry} periodic={periodic} "
+                      f"shape=(27,6,6,{l},{m},{n}) max_abs_err={err:.3e} "
+                      f"(limit {KTOL:.0e} x {scale:.3e}) edge columns "
+                      f"{eerr:.3e} (x {escale:.3e}) kernel {ms:.4f} ms "
+                      f"plain {plain_ms:.4f} ms bound {bound:.4f} ms by "
+                      f"{bound_by} ({100 * bound / ms:.0f}% of bound; "
+                      f"{need} coefficient bytes needed) "
+                      f"[{card_line}]", flush=True)
+                if periodic and entry not in rec:
+                    rec[entry] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=bound_by, library_ms=None)
+            if (l, m, n) == (12, 38, 96):
+                # what the card's memory gives in practice: one read of
+                # all coefficients, the skipped ones too, by a PyTorch
+                # reduction (it does not compute the kernel's function)
+                read_ms = time_ms([lambda a=a: a.sum() for a in copies])
+                nbytes = AnK.numel() * AnK.element_size()
+                print(f"kernel read of all {nbytes} coefficient bytes by "
+                      f"AnK.sum() ({entry}'s input): {read_ms:.4f} ms, "
+                      f"{nbytes / read_ms * 1e-9:.3f} TB/s; the kernel, "
+                      f"periodic: {need / rec[entry]['ms'] * 1e-9:.3f} TB/s "
+                      f"of needed coefficient bytes [{card_line}]",
+                      flush=True)
+            del AnK, copies
+    if set(rec) != set(hopper.ENTRIES):
+        raise AssertionError(f"entry points not exercised: "
+                             f"{set(hopper.ENTRIES) - set(rec)}")
     return rec
 
 
@@ -148,7 +247,54 @@ def phase_assembly() -> None:
           "(rhs + Jacobian, first call)", flush=True)
 
 
-def phase_effort(card_line: str) -> None:
+def _check_model_operator(hopper, o, vectors) -> None:
+    """The wide and the general-shape f32 kernel on the model's own
+    masked Jacobian and vectors of its solve, against the f64 product.
+    Each output row A is held to KTOL times the largest sum of |terms|
+    of that row, which is what bounds an f32 sum's round-off: the rows
+    differ by orders of magnitude, and terms cancel."""
+    from iemic_tpu_torch.ops.stencil import apply_stencil
+    An = o.jac
+    _, _, _, l, m, n = An.shape
+    AnK = hopper.prepare(An)
+    periodic = o.cfg.periodic
+    for name, v in vectors:
+        x = v.reshape(6, l, m, n).float()
+        # the same values 4 bytes off a 16-byte boundary: the wrapper
+        # then takes the general-shape kernel
+        off = torch.empty(x.numel() + 1, device=x.device,
+                          dtype=x.dtype)[1:].view_as(x).copy_(x)
+        before = dict(hopper.LAUNCHES_BY_ENTRY)
+        wide = hopper.apply_stencil_prepared(AnK, x, periodic=periodic)
+        general = hopper.apply_stencil_prepared(AnK, off, periodic=periodic)
+        if (hopper.LAUNCHES_BY_ENTRY[MAIN_ENTRY] != before[MAIN_ENTRY] + 1
+                or hopper.LAUNCHES_BY_ENTRY["stencil_matvec_f32"]
+                != before["stencil_matvec_f32"] + 1):
+            raise AssertionError("model operator: not the two f32 kernels")
+        plain = hopper.apply_plain(AnK, x, periodic=periodic)
+        AnK64, x64 = AnK.double(), x.double()
+        ref = apply_stencil(AnK64, x64, periodic=periodic)
+        # a row of zeros has error 0 over scale 0
+        scale = apply_stencil(AnK64.abs(), x64.abs(), periodic=periodic
+                              ).amax(dim=(1, 2, 3)).clamp_min(1e-300)
+        errs = {k: (y.double() - ref).abs().amax(dim=(1, 2, 3)) / scale
+                for k, y in (("wide", wide), ("general", general),
+                             ("plain", plain))}
+        print(f"effort model operator x={name} periodic={periodic}: error "
+              "against the f64 product over the row's largest sum of "
+              "|terms|, rows A=0..5: " + "; ".join(
+                  f"{k} " + " ".join(f"{e:.2e}" for e in v.tolist())
+                  for k, v in errs.items())
+              + f" (limit {KTOL:.0e}); wide and general differ in "
+              f"{int((wide != general).sum())} of {wide.numel()} values",
+              flush=True)
+        for k in ("wide", "general"):
+            if not bool((errs[k] <= KTOL).all()):
+                raise AssertionError(f"{k} kernel disagrees on the model's "
+                                     f"operator, x={name}: {errs[k]}")
+
+
+def phase_effort(hopper, card_line: str) -> None:
     """The production solve of scripts/diagnose.py's sweep (the masked
     global grid at its initial state, Combined Forcing 0.1, default BGS
     parameters, Mixed, tol 1e-3, b = -F), whose MV the repo records for
@@ -173,7 +319,7 @@ def phase_effort(card_line: str) -> None:
     o.compute_rhs()
     o.compute_jacobian()
     t0 = time.perf_counter()
-    o.solve(-o.rhs)
+    dx = o.solve(-o.rhs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     mv, relres = o.solve_iters, o.solve_relres
@@ -184,6 +330,7 @@ def phase_effort(card_line: str) -> None:
         raise AssertionError(f"effort: {mv} MV to {relres:.3e}; the JAX "
                              f"package needs {EFFORT_MV} MV to reach "
                              f"{EFFORT_TOL:g}")
+    _check_model_operator(hopper, o, (("-F", -o.rhs), ("dx", dx)))
 
 
 def _bundle_copy(tmp: str) -> str:
@@ -222,23 +369,34 @@ def _bundle_copy(tmp: str) -> str:
     return work
 
 
-def phase_main(hopper, card_line: str) -> int:
+def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
+    """run_ocean on the cut bundle.  entry is the kernel the run must go
+    through: the wrapper's own choice, or the general-shape f32 kernel,
+    which the wrapper is then made to take (see --general-kernel)."""
     from iemic_tpu_torch.main import run_ocean
 
-    with tempfile.TemporaryDirectory() as tmp:
-        work = _bundle_copy(tmp)
-        hopper.LAUNCHES = 0
-        t0 = time.perf_counter()
-        status = run_ocean.main([work, "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = hopper.LAUNCHES
-        info = open(os.path.join(work, "info_0.txt")).read()
-        cdata = open(os.path.join(work, "cdata.txt")).read()
-        profile = open(os.path.join(work, "profile_output")).read()
+    choose = hopper.kernel_variant
+    if entry != MAIN_ENTRY:
+        hopper.kernel_variant = \
+            lambda *shape: choose(*shape).removesuffix("_wide")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            work = _bundle_copy(tmp)
+            hopper.reset_launches()
+            t0 = time.perf_counter()
+            status = run_ocean.main([work, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = hopper.LAUNCHES
+            by_entry = dict(hopper.LAUNCHES_BY_ENTRY)
+            info = open(os.path.join(work, "info_0.txt")).read()
+            cdata = open(os.path.join(work, "cdata.txt")).read()
+            profile = open(os.path.join(work, "profile_output")).read()
+    finally:
+        hopper.kernel_variant = choose
 
     print(f"main status={status} wall={wall:.1f} s "
-          f"kernel launches={launches}", flush=True)
+          f"kernel launches={launches} {by_entry}", flush=True)
     for line in cdata.strip().splitlines():
         print("main cdata " + line, flush=True)
     solves = [(int(a), float(b)) for a, b in re.findall(
@@ -272,8 +430,9 @@ def phase_main(hopper, card_line: str) -> int:
 
     if status != 0:
         raise AssertionError(f"run_ocean returned {status}")
-    if launches <= 0:
-        raise AssertionError("the main path launched no Hopper kernel")
+    if by_entry[entry] <= 0 or by_entry[entry] != launches:
+        raise AssertionError(f"the main path did not go through "
+                             f"{entry} alone: {by_entry}")
     if not solves or not all(np.isfinite(r) and r < SOLVE_TOL
                              for _, r in solves):
         raise AssertionError("a solve missed its tolerance "
@@ -285,10 +444,17 @@ def phase_main(hopper, card_line: str) -> int:
             if ln.strip() and not ln.startswith("#")]
     if len(rows) != 1 or not all(np.isfinite(float(v)) for v in rows[0]):
         raise AssertionError(f"expected one finite cdata row: {rows}")
-    return launches
+    return by_entry
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--general-kernel", action="store_true",
+        help="after the main phase, run it once more through the "
+        "general-shape f32 kernel: the two kernels sum in another order, "
+        "so the two MV sequences show what the sequence owes to that")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     card_line = card()
@@ -310,19 +476,22 @@ def main() -> int:
     phase_assembly()
     print(f"assembly phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    phase_effort(card_line)
+    phase_effort(hopper, card_line)
     print(f"effort phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches = phase_main(hopper, card_line)
     print(f"main phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.general_kernel:
+        print("main phase once more, through stencil_matvec_f32:",
+              flush=True)
+        phase_main(hopper, card_line, "stencil_matvec_f32")
 
-    f32 = rec["f32"]
-    print(json.dumps({"kernels": [{
-        "name": "stencil_matvec_f32", "route": "cuda",
-        "source": "iemic_tpu_torch/csrc/stencil_matvec.cu",
-        "replaces": "iemic_tpu/ops/stencil_pallas.py:84",
-        "launches": launches, "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"]}]}))
+    print(json.dumps({"kernels": [dict(
+        name=entry, route="cuda",
+        source="iemic_tpu_torch/csrc/stencil_matvec.cu",
+        replaces="iemic_tpu/ops/stencil_pallas.py:84",
+        launches=launches[entry], **rec[entry])
+        for entry in hopper.ENTRIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -177,8 +177,11 @@ class Ocean:
 
     def __init__(self, params: ParameterList | dict | None = None,
                  solver_params: ParameterList | dict | None = None,
-                 data_dir: str | None = None, *, device="cpu"):
+                 data_dir: str | None = None, *, device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Ocean: device cuda but no CUDA device "
+                               "(pass device=\"cpu\" to run on the CPU)")
         if params is None:
             params = ParameterList("Ocean")
         if isinstance(params, dict):

@@ -42,6 +42,79 @@ def test_kernel_matches_plain_on_card():
             torch.testing.assert_close(y, ref, rtol=2e-5, atol=2e-5)
 
 
+# every entry point of the library: (l, m, n) and the coefficient type
+# that reach it (8x8x4 grids as (l, m, n) = (4, 8, 8); n = 12 is wide in
+# f32 only; n = 3 is the 2DMOC fixture's row, n = 7 an odd one)
+ENTRY_CASES = [
+    ((4, 8, 8), "float32", "stencil_matvec_f32_wide"),
+    ((4, 8, 8), "bfloat16", "stencil_matvec_bf16_wide"),
+    ((2, 3, 12), "float32", "stencil_matvec_f32_wide"),
+    ((2, 3, 12), "bfloat16", "stencil_matvec_bf16"),
+    ((6, 6, 3), "float32", "stencil_matvec_f32"),
+    ((6, 6, 3), "bfloat16", "stencil_matvec_bf16"),
+    ((3, 5, 7), "float32", "stencil_matvec_f32"),
+    ((3, 5, 7), "bfloat16", "stencil_matvec_bf16"),
+]
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("shape,dtype,entry", ENTRY_CASES)
+def test_kernel_entry_matches_plain_on_card(shape, dtype, entry, periodic):
+    """Each entry point against the plain version, at a random x and at
+    an x kept on the two edge columns in i (a wrong wrap shows in full
+    there); the launch is counted under the entry kernel_variant names."""
+    dtype = getattr(torch, dtype)
+    l, m, n = shape
+    assert stencil_hopper.kernel_variant(dtype, l, m, n) == entry
+    rng = np.random.default_rng(12)
+    An = torch.as_tensor(rng.standard_normal((27, 6, 6, l, m, n))).cuda()
+    AnK = stencil_hopper.prepare(An, dtype)
+    x = rng.standard_normal((6, l, m, n))
+    edge = np.zeros_like(x)
+    edge[..., 0], edge[..., -1] = x[..., 0], x[..., -1]
+    for v in (x, edge):
+        v = torch.as_tensor(v).cuda()
+        before = stencil_hopper.LAUNCHES_BY_ENTRY[entry]
+        y = stencil_hopper.apply_stencil_prepared(AnK, v, periodic=periodic)
+        torch.cuda.synchronize()
+        assert stencil_hopper.LAUNCHES_BY_ENTRY[entry] == before + 1
+        ref = stencil_hopper.apply_plain(AnK, v, periodic=periodic)
+        torch.testing.assert_close(y, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_unaligned_tensor_takes_general_kernel_on_card():
+    """A coefficient tensor that does not start on a 16-byte boundary
+    goes through the general-shape kernel, never the plain version."""
+    rng = np.random.default_rng(13)
+    l, m, n = 4, 8, 8
+    buf = torch.as_tensor(rng.standard_normal(27 * 36 * l * m * n + 1),
+                          dtype=torch.float32).cuda()
+    AnK = buf[1:].view(27, 6, 6, l, m, n)
+    assert AnK.data_ptr() % 16 != 0 and AnK.is_contiguous()
+    x = torch.as_tensor(rng.standard_normal((6, l, m, n))).cuda()
+    before = dict(stencil_hopper.LAUNCHES_BY_ENTRY)
+    y = stencil_hopper.apply_stencil_prepared(AnK, x, periodic=True)
+    assert stencil_hopper.LAUNCHES_BY_ENTRY["stencil_matvec_f32"] \
+        == before["stencil_matvec_f32"] + 1
+    assert stencil_hopper.LAUNCHES_BY_ENTRY["stencil_matvec_f32_wide"] \
+        == before["stencil_matvec_f32_wide"]
+    torch.testing.assert_close(
+        y, stencil_hopper.apply_plain(AnK, x, periodic=True),
+        rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_ocean_default_device_is_the_card():
+    o = Ocean({"THCM": {"Global Grid-Size n": 8, "Global Grid-Size m": 8,
+                        "Global Grid-Size l": 4}}, data_dir=DATA)
+    assert o.device.type == "cuda" and o.state.is_cuda
+
+
 @pytest.mark.cuda
 @needs_card
 def test_graphed_sweep_matches_eager_on_card():

@@ -230,6 +230,17 @@ def test_simple_sweep_matches_jax(case):
     _close(zt.numpy(), zj, BGS_TOL[case][0])
 
 
+def test_ocean_defaults_to_the_card():
+    """With no device named the port's Ocean runs on the card, and
+    raises where there is none; the CPU is taken only when asked for."""
+    import inspect
+    sig = inspect.signature(TOcean.__init__)
+    assert sig.parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TOcean(_island_params(), data_dir=DATA)
+
+
 def test_interop_carries_jax_inputs():
     """par, land mask, forcing fields, state and An installed from the
     JAX package give the port the same residual and Jacobian action."""
