@@ -601,7 +601,8 @@ class Continuation:
                 h5.save_eigenvectors(
                     f"ev_step_{self.step_}.h5",
                     self.eigen_solver.alpha, self.eigen_solver.beta,
-                    self.eigen_solver.eigenvectors)
+                    [v.cpu().numpy() if torch.is_tensor(v) else v
+                     for v in self.eigen_solver.eigenvectors])
             except Exception as e:   # saving must not kill the run
                 log.WARNING(f"could not save eigenvectors: {e}")
 

@@ -9,13 +9,16 @@ model and writes ``cdata.txt``, ``info_0.txt`` and ``profile_output``.
 Usage: python -m iemic_tpu_torch.main.run_ocean [workdir] [--device cuda|cpu]
 
 The default device is cuda; asking for cuda without a card raises.
-The JDQZ eigensolver is not ported yet: a run whose continuation
-parameters ask for eigenvalue analysis raises NotImplementedError.
+With a ``jdqz_params.xml`` in the working directory the JDQZ eigensolver
+is attached to the continuation, which runs it where
+``continuation_params.xml`` asks for eigenvalue analysis ("E" at the end
+of the run, "P" at every converged point) and writes ``ev_step_<n>.h5``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -48,9 +51,12 @@ def read_solver_params():
     return solver_params
 
 
-def run(workdir: str | None = None, device: str = "cuda"):
-    """Run the bundle in workdir on device; returns (status, ocean,
-    continuation) for callers that inspect the run."""
+@contextlib.contextmanager
+def bundle(workdir: str | None = None, device: str = "cuda"):
+    """Inside the with block the process works in workdir with the run's
+    log files open, and gets (ocean, continuation) as the bundle's
+    parameter files describe them on device, the JDQZ eigensolver attached
+    where there is a ``jdqz_params.xml``."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_ocean: --device cuda but no CUDA device")
     cwd = os.getcwd()
@@ -66,16 +72,24 @@ def run(workdir: str | None = None, device: str = "cuda"):
                       solver_params=read_solver_params(), device=device)
         continuation = Continuation(ocean,
                                     read_xml("continuation_params.xml"))
-        if continuation.eigenvalue_analysis != "N" \
-                and os.path.exists("jdqz_params.xml"):
-            raise NotImplementedError(
-                "eigenvalue analysis (JDQZ): ROADMAP queue 1 item 8")
-        status = continuation.run().status
-        log.print_profile("profile_output")
+        if os.path.exists("jdqz_params.xml"):
+            from ..solvers.eigen import JDQZ
+            continuation.set_eigen_solver(
+                JDQZ(ocean, read_xml("jdqz_params.xml")))
+        yield ocean, continuation
     finally:
         log.set_log_stream(sys.stdout)
         stream.close()
         os.chdir(cwd)
+
+
+def run(workdir: str | None = None, device: str = "cuda"):
+    """Run the bundle in workdir on device; returns (status, ocean,
+    continuation) for callers that inspect the run."""
+    from ..utils import logging as log
+    with bundle(workdir, device) as (ocean, continuation):
+        status = continuation.run().status
+        log.print_profile("profile_output")
     return status, ocean, continuation
 
 

@@ -161,14 +161,16 @@ class OceanConfig:
 
 
 def _to_dtype(obj, dtype):
-    """Cast every floating tensor of a factor tree (NamedTuples, tuples)
-    to dtype; other leaves are kept."""
+    """Cast every floating tensor of a factor tree (NamedTuples, tuples,
+    lists, dicts) to dtype; other leaves are kept."""
     if isinstance(obj, torch.Tensor):
         return obj.to(dtype) if obj.is_floating_point() else obj
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*(_to_dtype(v, dtype) for v in obj))
     if isinstance(obj, (tuple, list)):
         return type(obj)(_to_dtype(v, dtype) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _to_dtype(v, dtype) for k, v in obj.items()}
     return obj
 
 
@@ -457,6 +459,9 @@ class Ocean:
             prec_params, landm=np.asarray(self.landm),
             periodic=cfg.periodic, grid_shape=(cfg.l, cfg.m, cfg.n),
             int_row_provider=_int_row_provider)
+        # MILU and Amesos factors live on the host: their solve is the
+        # host-driven f64 FGMRES, whatever "Precision" says
+        self._prec_host_only = prec_params["Method"] in ("MILU", "Amesos")
 
         choice = sp.get("Matvec kernel", "auto")
         if choice not in ("auto", "pallas", "xla"):
@@ -572,6 +577,22 @@ class Ocean:
                           torch.zeros_like(flat_b), tol, self._maxiter)
         return _proj(res.x, nullq).reshape(shape), res.iters, res.relres
 
+    def _solve_host_prec(self, b_s, tol, nullq, factors):
+        """f64 FGMRES (modified Gram-Schmidt) around a preconditioner
+        whose factors live on the host, like the reference's
+        AdditiveSchwarz-MRILU path (src/mrilucpp/): the Krylov vectors
+        stay on the model's device and each application crosses once."""
+        shape = b_s.shape
+
+        def pc(v):
+            z = self._prec_apply(factors, v.reshape(shape)).reshape(-1)
+            return _proj(z, nullq)
+
+        x, res = fgmres_host(lambda v: self._mv64(v, nullq),
+                             _proj(b_s.reshape(-1), nullq), prec=pc,
+                             tol=tol, maxiter=self._maxiter)
+        return _proj(x, nullq).reshape(shape), res.iters, res.relres
+
     def _get_prec_factors(self):
         """Build (or reuse) the preconditioner factors for the current
         Jacobian, with THCM row scaling (Ocean::scaleProblem)."""
@@ -588,7 +609,7 @@ class Ocean:
                     self._jac_s = self.jac
                     self._rint = 1.0
                 self._prec_factors = self._prec_build(self._jac_s)
-                if self._precision == "Mixed":
+                if self._precision == "Mixed" and not self._prec_host_only:
                     # factor in f64, run in f32
                     self._prec_factors32 = _to_dtype(self._prec_factors,
                                                      torch.float32)
@@ -640,6 +661,17 @@ class Ocean:
             B[self.rowintcon] = 0.0
         self.diagB = B
 
+    def add_mass_to_jacobian(self, scale: float) -> None:
+        """J += scale * diag(B) on the center block diagonal (reference
+        ThetaModel.H:118-146).  The sum is a new tensor: the cached
+        preconditioner factors and the prepared f32 operator belong to
+        the tensor they were built from (_get_prec_factors), and are
+        rebuilt for this one."""
+        An = self.jac.clone()
+        for a in range(6):
+            An[4, a, a] += scale * self.diagB[a]
+        self.jac = An
+
     def apply_matrix(self, v):
         return self._apply(self.jac, v)
 
@@ -657,7 +689,10 @@ class Ocean:
         factors, factors32 = self._get_prec_factors()
         b_s = b if self._rowscale is None else b * self._rowscale
         with log.timer("Ocean: solve"):
-            if self._precision == "Mixed":
+            if self._prec_host_only:
+                x, iters, relres = self._solve_host_prec(b_s, tol, nullq,
+                                                         factors)
+            elif self._precision == "Mixed":
                 x, iters, relres = self._solve_mixed_host(
                     b_s, tol, nullq, factors32)
             else:

@@ -7,7 +7,17 @@ TRIOS::SolverFactory, TRIOS_SolverFactory.C:65-250): dispatch on a
     build(An)         -> factors
     apply(factors, r) -> z ~= J^{-1} r
 
-Methods ported: "None", "Columns" and "BGS".
+Methods: "None", "Columns" (:mod:`.preconditioner`), "BGS" (:mod:`.bgs`),
+"Teko" (:mod:`.rearranger`), and the two host-side ones, "Amesos" (a
+sparse LU of the assembled CSR matrix, scipy) and "MILU" (the native
+multilevel ILU, :mod:`iemic_tpu_torch.native.milu`).  Where the JAX package
+crossed to the host through ``jax.pure_callback``, the host-side methods
+copy the residual to the host, solve there in f64, and return the result
+on the residual's device in its dtype.
+
+Plus :func:`make_krylov` (the AztecOO construction analog) and
+:func:`spectrum_analysis` (the SolverFactory spectrum probe of P^{-1} A,
+TRIOS_SolverFactory.H:22-60).
 """
 
 from __future__ import annotations
@@ -15,8 +25,11 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
+import torch
 
 from ..config import ParameterList
+from ..ops.stencil import stencil_to_csr, to_flat, from_flat
+from ..utils import logging as log
 
 
 def default_prec_params() -> ParameterList:
@@ -105,6 +118,7 @@ def make_preconditioner(params: ParameterList | dict | None, *,
         build_kw = dict(
             spp_scheme=params.get("Saddlepoint scheme"),
             rhomu=bool(params.get("ATS rho/mu Transform")),
+            rhomu_lambda=float(params.get("rho/mu lambda")),
             uv_precond=params.get("Auv Precond"),
             ts_precond=params.get("ATS Precond"),
             spp_precond=params.get("Saddlepoint Precond"),
@@ -139,8 +153,132 @@ def make_preconditioner(params: ParameterList | dict | None, *,
 
         return build, apply
 
-    if method in ("Teko", "Amesos", "MILU"):
-        raise NotImplementedError(
-            f"preconditioner '{method}': ROADMAP queue 1 item 13 "
-            "(remaining solvers)")
+    if method == "Teko":
+        # the experimental Teko/Rearranger path: block-GS over the
+        # ([u,v,w,p] | [T,S]) groups with column inverses per group
+        from . import rearranger
+        sweeps = params.get("Teko sweeps")
+
+        def build(An):
+            return rearranger.build(An, periodic=periodic)
+
+        def apply(fac, r):
+            return rearranger.apply(fac, r, periodic=periodic,
+                                    sweeps=sweeps)
+
+        return build, apply
+
+    if method == "Amesos":
+        # sparse-direct factorization of the assembled CSR matrix (the
+        # reference's Ifpack Amesos_Klu option)
+        import scipy.sparse as sp
+        import scipy.sparse.linalg as spla
+
+        def build(An):
+            data, indices, indptr = stencil_to_csr(An, periodic=periodic)
+            N = len(indptr) - 1
+            A = sp.csr_matrix((data, indices, indptr), shape=(N, N))
+            # the ocean Jacobian is exactly singular along the pressure
+            # checkerboard modes, where an LU of the exact matrix returns
+            # O(1/eps) garbage; a relative 1e-10 diagonal shift caps the
+            # null-space gain (the outer FGMRES deflates those modes)
+            shift = 1e-10 * float(np.abs(data).max())
+            return spla.splu((A + shift * sp.identity(N, format="csr"))
+                             .tocsc())
+
+        def apply(fac, r):
+            return _host_solve(fac.solve, r)
+
+        return build, apply
+
+    if method == "MILU":
+        from ..native import milu
+        droptol = params.get("MILU drop tolerance")
+        maxlev = params.get("MILU max levels")
+        fill = params.get("MILU fill factor")
+
+        def build(An):
+            data, indices, indptr = stencil_to_csr(An, periodic=periodic)
+            return milu.factor(data, indices, indptr, droptol=droptol,
+                               max_levels=maxlev, fill_factor=fill)
+
+        def apply(fac, r):
+            return _host_solve(fac.solve, r)
+
+        return build, apply
+
     raise ValueError(f"SolverFactory: unknown method '{method}'")
+
+
+def _host_solve(solve: Callable, r: torch.Tensor) -> torch.Tensor:
+    """z = solve(r) for a host-side factorization: r (6, l, m, n) goes to
+    the host in the flat row ordering of the CSR matrix, f64, and the
+    result comes back on r's device in r's dtype."""
+    _, l, m, n = r.shape
+    z = solve(to_flat(r).detach().cpu().numpy().astype(np.float64))
+    return from_flat(torch.as_tensor(z, dtype=r.dtype, device=r.device),
+                     l, m, n)
+
+
+def make_krylov(solver_params: ParameterList | dict | None = None):
+    """Krylov solver construction (TRIOS_SolverFactory.C:65-250): returns
+    a host-driven ``solve(matvec, b, prec)`` closure configured from the
+    list.  FGMRES returns (x, FGMRESResult), IDR an IDRResult, as in the
+    JAX package."""
+    from .fgmres import fgmres_host
+    from .idr import idr_host
+
+    sp = solver_params or {}
+    if isinstance(sp, ParameterList):
+        sp = sp.to_dict()
+    method = sp.get("Method", "FGMRES")
+    tol = sp.get("Tolerance", 1e-8)
+    maxiter = sp.get("Max iterations", 200)
+    s = sp.get("IDR s", 4)
+
+    if method == "FGMRES":
+        def solve(matvec, b, prec=None):
+            return fgmres_host(matvec, b, prec=prec, tol=tol,
+                               maxiter=maxiter)
+        return solve
+    if method == "IDR":
+        def solve(matvec, b, prec=None):
+            return idr_host(matvec, b, prec=prec, tol=tol,
+                            maxiter=maxiter, s=s)
+        return solve
+    raise ValueError(f"SolverFactory: unknown Krylov method '{method}'")
+
+
+def spectrum_analysis(matvec: Callable, prec: Callable, N: int, *,
+                      nsample: int = 40, seed: int = 0,
+                      device="cuda") -> np.ndarray:
+    """Estimate the spectrum of P^{-1} A by Arnoldi Ritz values, to judge
+    a preconditioner offline.  matvec and prec map flat f64 tensors on
+    device to flat tensors; the start vector comes from
+    ``np.random.default_rng(seed)``.  The Arnoldi basis lives on device:
+    the card unless the caller asks for the CPU, as for Ocean."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("spectrum_analysis: device cuda but no CUDA "
+                           "device (pass device=\"cpu\" to run on the CPU)")
+    rng = np.random.default_rng(seed)
+    k = min(nsample, N - 1)
+    V = torch.zeros((N, k + 1), dtype=torch.float64, device=device)
+    H = np.zeros((k + 1, k))
+    v0 = rng.standard_normal(N)
+    V[:, 0] = torch.as_tensor(v0 / np.linalg.norm(v0), device=device)
+    ncols = 0
+    for j in range(k):
+        w = prec(matvec(V[:, j]).reshape(-1)).reshape(-1).to(torch.float64)
+        for i in range(j + 1):
+            H[i, j] = float(V[:, i] @ w)
+            w = w - H[i, j] * V[:, i]
+        H[j + 1, j] = float(torch.linalg.norm(w))
+        ncols = j + 1
+        if H[j + 1, j] < 1e-12:
+            break
+        V[:, j + 1] = w / H[j + 1, j]
+    ritz = np.linalg.eigvals(H[:ncols, :ncols])
+    log.INFO(f"spectrum_analysis: {ncols} Ritz values, "
+             f"|lambda| in [{np.abs(ritz).min():.2e}, "
+             f"{np.abs(ritz).max():.2e}]")
+    return ritz

@@ -8,6 +8,7 @@ Hessenberg / Givens bookkeeping is done in numpy, in the working dtype,
 from one device-to-host copy per iteration.
 
   * :func:`fgmres_flat` — CGS2 Arnoldi, Givens rotations, ``stall_limit``
+  * :func:`fgmres` — the same on tensors of any shape
   * :func:`fgmres_host` — modified Gram-Schmidt variant, used by the
     outer f64 GMRES-IR tail of the mixed-precision solve
 """
@@ -168,3 +169,20 @@ def fgmres_host(matvec: Callable, b: torch.Tensor, *,
     x = Z[:j].T @ torch.as_tensor(y, **kw)
     return x, FGMRESResult(x=x, iters=j, relres=res / max(bnorm, 1e-300),
                            converged=res <= target)
+
+
+def fgmres(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
+           *, prec: Callable | None = None, tol: float = 1e-8,
+           maxiter: int = 100) -> tuple[torch.Tensor, FGMRESResult]:
+    """Solve A x = b with right-preconditioned FGMRES; matvec and prec act
+    on tensors shaped like b.  Returns (x shaped like b, FGMRESResult)."""
+    shape = b.shape
+
+    def flat(fn):
+        return lambda v: fn(v.reshape(shape)).reshape(-1)
+
+    res = fgmres_flat(flat(matvec), flat(prec) if prec else lambda v: v,
+                      b.reshape(-1),
+                      torch.zeros_like(b.reshape(-1)) if x0 is None
+                      else x0.reshape(-1), tol, maxiter)
+    return res.x.reshape(shape), res

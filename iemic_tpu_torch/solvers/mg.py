@@ -140,8 +140,10 @@ class MGLevel(NamedTuple):
     An: torch.Tensor
     binv: torch.Tensor
     dummy: torch.Tensor
-    xinv: torch.Tensor     # (nv*l*m, n, n) zonal line inverses
-    xdummy: torch.Tensor   # (nv*l*m, n)
+    # zonal line inverses of the alternating-line smoother, (nv*l*m, n, n)
+    # and (nv*l*m, n); None when the hierarchy was built without them
+    xinv: torch.Tensor | None = None
+    xdummy: torch.Tensor | None = None
 
 
 class MGPrec(NamedTuple):
@@ -176,14 +178,17 @@ def _prolong2(zc: torch.Tensor, m: int, n: int, w: float,
 
 def build(An: torch.Tensor, *, periodic: bool, min_cols: int = 64,
           max_levels: int = 10, damping: float = 0.9,
-          prolong_w: float = 0.25) -> MGPrec:
+          xline: bool = True, prolong_w: float = 0.25) -> MGPrec:
     """Build the multigrid hierarchy for one (27, nv, nv, l, m, n)
-    stencil sub-block (alternating-line smoother)."""
+    stencil sub-block; xline adds the zonal line solve to the smoother.
+    With prolong_w > 0 the cycle is nonsymmetric (restriction stays
+    sum-aggregation): fine for FGMRES and IDR, not for CG."""
     levels = []
     cur = An
     while True:
         binv, dummy = _column_inv(cur)
-        xinv, xdummy = _xline_inv(cur, periodic=periodic)
+        xinv, xdummy = _xline_inv(cur, periodic=periodic) if xline \
+            else (None, None)
         levels.append(MGLevel(An=cur, binv=binv, dummy=dummy,
                               xinv=xinv, xdummy=xdummy))
         m, n = cur.shape[-2:]
@@ -198,18 +203,21 @@ def build(An: torch.Tensor, *, periodic: bool, min_cols: int = 64,
                   damping=damping, pw=prolong_w)
 
 
-def _smooth(lev: MGLevel, z, r, *, periodic, damping):
-    """One damped alternating-line Jacobi sweep: a vertical (column)
-    solve followed by a zonal (x-line) solve."""
+def _smooth(lev: MGLevel, z, r, *, periodic, damping, nsweep=1):
+    """Damped alternating-line Jacobi sweeps: a vertical (column) solve
+    followed by a zonal (x-line) solve when built."""
     nv, l, m, n = r.shape
-    res = r - apply_stencil(lev.An, z, periodic=periodic)
-    rc = to_columns(res).masked_fill(lev.dummy, 0.0)
-    dz = torch.bmm(lev.binv, rc.unsqueeze(-1)).squeeze(-1)
-    z = z + damping * from_columns(dz, nv, l, m, n)
-    res = r - apply_stencil(lev.An, z, periodic=periodic)
-    rx = res.reshape(nv * l * m, n).masked_fill(lev.xdummy, 0.0)
-    dzx = torch.bmm(lev.xinv, rx.unsqueeze(-1)).squeeze(-1)
-    return z + damping * dzx.reshape(nv, l, m, n)
+    for _ in range(nsweep):
+        res = r - apply_stencil(lev.An, z, periodic=periodic)
+        rc = to_columns(res).masked_fill(lev.dummy, 0.0)
+        dz = torch.bmm(lev.binv, rc.unsqueeze(-1)).squeeze(-1)
+        z = z + damping * from_columns(dz, nv, l, m, n)
+        if lev.xinv is not None:
+            res = r - apply_stencil(lev.An, z, periodic=periodic)
+            rx = res.reshape(nv * l * m, n).masked_fill(lev.xdummy, 0.0)
+            dzx = torch.bmm(lev.xinv, rx.unsqueeze(-1)).squeeze(-1)
+            z = z + damping * dzx.reshape(nv, l, m, n)
+    return z
 
 
 def _restrict(res: torch.Tensor) -> torch.Tensor:

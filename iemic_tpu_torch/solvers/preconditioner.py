@@ -120,3 +120,16 @@ def pressure_null_vectors(landm: np.ndarray, l: int, m: int, n: int,
             v[PP] = np.where(comp, pat, 0.0)
             out.append(v / max(np.linalg.norm(v), 1e-300))
     return out
+
+
+def make_deflator(null_vecs: torch.Tensor):
+    """Return a projector onto the orthogonal complement of the
+    (orthonormalized) null vectors; null_vecs: (k, ...) stacked."""
+    k = null_vecs.shape[0]
+    q, _ = torch.linalg.qr(null_vecs.reshape(k, -1).T)   # (N, k)
+
+    def project(v):
+        vf = v.reshape(-1)
+        return (vf - q @ (q.T @ vf)).reshape(v.shape)
+
+    return project

@@ -1,8 +1,8 @@
-"""Depth-averaged saddle-point operator and the SIMPLE preconditioner
-(PyTorch).
+"""Depth-averaged saddle-point operator and the SIMPLE-type
+preconditioners (PyTorch).
 
-Port of the SI scheme of ``iemic_tpu/solvers/saddlepoint.py`` (the
-reference's SaddlepointMatrix + SppSimplePrec,
+Port of ``iemic_tpu/solvers/saddlepoint.py`` (the reference's
+SaddlepointMatrix + SppSimplePrec,
 TRIOS_Saddlepoint.H:28-95, 259-276): the saddle operator is the
 (9, 3, 3, m, n) depth-averaged stencil ``Spp``; the approximate momentum
 inverse is the pointwise 2x2 inverse of its (u, v) diagonal; the pressure
@@ -11,6 +11,9 @@ Schur complement Chat = -D diag(A)^{-1} G is composed symbolically into a
 
   'SI' (SIMPLE):  u* = Ainv r_u;  solve Chat dp = D u* - r_p;
                   u = u* - Ainv G dp;  p = dp
+  'SL' (SIMPLE(L)): as SI but skips the final momentum correction
+  'SR' (SIMPLER): a pressure prediction from the momentum residual
+                  precedes the SIMPLE sweep
 """
 
 from __future__ import annotations
@@ -25,8 +28,6 @@ from . import mg as _mg
 from .mg import shift2d, apply25, _O25_INDEX
 
 _OFFS9 = offsets()[:9]                       # (di, dj, 0) center plane
-_SCHEMES = "saddle schemes SL/SR/KRYLOV: ROADMAP queue 1 item 5 " \
-           "(non-bundle BGS branches)"
 
 
 class SppSimple(NamedTuple):
@@ -88,6 +89,24 @@ def deflate(x: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def apply_stencil_2d(S: torch.Tensor, offs, x: torch.Tensor,
+                     periodic: bool) -> torch.Tensor:
+    """y(j,i) = sum_q S[q,j,i] * x(j+dj_q, i+di_q) for scalar planes, with
+    offsets offs of reach up to 2."""
+    acc = 0.0
+    for q, (di, dj) in enumerate(offs):
+        acc = acc + S[q] * shift2d(x, int(di), int(dj), periodic)
+    return acc
+
+
+def apply_saddle(Spp: torch.Tensor, x: torch.Tensor, periodic: bool
+                 ) -> torch.Tensor:
+    """The saddle operator action [A G; D 0] x on (3, m, n) vectors (the
+    SaddlepointMatrix::Apply analog, TRIOS_Saddlepoint.H:28-95)."""
+    from .bgs import _apply_2d
+    return _apply_2d(Spp, x, periodic)
+
+
 def _chat_solve(sp: SppSimple, b: torch.Tensor, periodic: bool,
                 iters: int) -> torch.Tensor:
     """Inner FGMRES on Chat x = b, MG-preconditioned, with the
@@ -110,9 +129,9 @@ def _chat_solve(sp: SppSimple, b: torch.Tensor, periodic: bool,
 
 def apply_simple(sp: SppSimple, r: torch.Tensor, *, periodic: bool,
                  scheme: str = "SI", chat_iters: int = 12) -> torch.Tensor:
-    """One SIMPLE sweep z ~= Spp^{-1} r; r: (3, m, n) = (r_u, r_v, r_p)."""
-    if scheme != "SI":
-        raise NotImplementedError(_SCHEMES)
+    """One SIMPLE / SIMPLE(L) / SIMPLER sweep z ~= Spp^{-1} r; r: (3, m, n)
+    = (r_u, r_v, r_p).  Scheme semantics follow
+    SppSimplePrec::ApplyInverse (TRIOS_Saddlepoint.H:28-95)."""
     ruv, rp = r[:2], r[2]
 
     def ainv(v):
@@ -136,7 +155,13 @@ def apply_simple(sp: SppSimple, r: torch.Tensor, *, periodic: bool,
             rows.append(acc)
         return torch.stack(rows)
 
+    if scheme == "SR":
+        # SIMPLER: pressure prediction from the momentum residual
+        p0 = _chat_solve(sp, Dmul(ainv(ruv)) - rp, periodic, chat_iters)
+        ruv = ruv - Gmul(p0)
+    else:
+        p0 = torch.zeros_like(rp)
     ustar = ainv(ruv)
     dp = _chat_solve(sp, Dmul(ustar) - rp, periodic, chat_iters)
-    u = ustar - ainv(Gmul(dp))
-    return torch.cat([u, dp[None]])
+    u = ustar if scheme == "SL" else ustar - ainv(Gmul(dp))
+    return torch.cat([u, (p0 + dp)[None]])

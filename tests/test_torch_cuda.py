@@ -145,3 +145,103 @@ def test_graphed_sweep_matches_eager_on_card():
     eager = bgs.apply(f32, r, periodic=o.cfg.periodic, nit_spp=5)
     for _ in range(2):
         torch.testing.assert_close(o._prec_apply(f32, r), eager)
+
+
+ISLAND = {"THCM": {
+    "Global Grid-Size n": 8, "Global Grid-Size m": 8,
+    "Global Grid-Size l": 4, "Read Land Mask": True,
+    "Land Mask": "test8x8x4_3",
+    "Starting Parameters": {"Combined Forcing": 0.5,
+                            "Temperature Forcing": 10.0,
+                            "Salinity Forcing": 0.1,
+                            "Wind Forcing": 1.0}}}
+
+
+def _island(device, solver_params):
+    """The masked 8x8x4 grid at a random state, F and Jacobian computed;
+    the same on every device."""
+    o = Ocean(ISLAND, solver_params=solver_params, data_dir=DATA,
+              device=device)
+    rng = np.random.default_rng(0)
+    interop.install_state(o, 0.05 * rng.standard_normal(
+        tuple(o.state.shape)))
+    o.compute_rhs()
+    o.compute_jacobian()
+    return o
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("scheme", ["SL", "SR"])
+def test_graphed_sweep_schemes_match_eager_on_card(scheme):
+    """The graphed saddle iteration depends on the scheme: the model's f32
+    sweep with SL and with SR, recorded on the first call and replayed on
+    the second, against the same sweep launched op by op; and the graphs
+    of one factor set are kept per scheme."""
+    o = _island("cuda", {"Preconditioning": "BGS", "Precision": "Mixed",
+                         "Preconditioner": {"Saddlepoint iterations": 5,
+                                            "Saddlepoint scheme": scheme}})
+    _, f32 = o._get_prec_factors()
+    r = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        tuple(o.state.shape)), dtype=torch.float32, device="cuda")
+    eager = bgs.apply(f32, r, periodic=False, nit_spp=5, spp_scheme=scheme)
+    for _ in range(2):
+        torch.testing.assert_close(o._prec_apply(f32, r), eager)
+    graphs = bgs.SweepGraphs(f32)
+    for sch in ("SI", scheme):
+        torch.testing.assert_close(
+            bgs.apply(f32, r, periodic=False, nit_spp=5, spp_scheme=sch,
+                      graphs=graphs),
+            bgs.apply(f32, r, periodic=False, nit_spp=5, spp_scheme=sch))
+    assert set(graphs.recorded) == {"SI", scheme}
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("method,tol", [("MILU", 1e-4), ("Amesos", 1e-8)])
+def test_host_preconditioner_with_cuda_tensors_on_card(method, tol):
+    """MILU and Amesos factor and solve on the host: a solve on the card
+    carries CUDA tensors across in every application and agrees with the
+    same solve on the CPU (the Krylov vectors' sums differ in order: 1e-6
+    relative for the one-iteration Amesos solve, 10 tol for MILU)."""
+    sp = {"Preconditioning": method, "FGMRES tolerance": tol,
+          "FGMRES iterations": 400}
+    xs = []
+    for device in ("cuda", "cpu"):
+        o = _island(device, dict(sp))
+        x = o.solve(-o.rhs)
+        assert x.device.type == device and o.solve_relres <= tol
+        xs.append(x.cpu())
+    far = float((xs[0] - xs[1]).abs().max() / xs[1].abs().max())
+    assert far <= (1e-6 if method == "Amesos" else 10 * tol), far
+
+
+@pytest.mark.cuda
+@needs_card
+def test_jdqz_on_card_matches_cpu():
+    """JDQZ on the 4x4x3 ocean (BGS, Mixed: every Arnoldi step is a solve
+    through the kernel) on the card against the CPU: eigenvalues to 1e-5
+    relative (both are held to 1e-7 Ritz residuals, with f32 inner solves
+    whose iterates differ between the devices), search space on the
+    card."""
+    from iemic_tpu_torch.solvers.eigen import JDQZ
+    lams = []
+    for device in ("cuda", "cpu"):
+        o = Ocean({"THCM": {
+            "Global Grid-Size n": 4, "Global Grid-Size m": 4,
+            "Global Grid-Size l": 3,
+            "Starting Parameters": {"Combined Forcing": 0.2,
+                                    "Temperature Forcing": 10.0,
+                                    "Wind Forcing": 1.0}}},
+            solver_params={"FGMRES tolerance": 1e-12,
+                           "FGMRES iterations": 300}, device=device)
+        before = stencil_hopper.LAUNCHES
+        solver = JDQZ(o, {"Number of eigenvalues": 3, "Tolerance": 1e-7})
+        solver.solve()
+        assert solver.kmax_converged == 3
+        assert solver.eigenvectors[0].device.type == device
+        if device == "cuda":
+            assert stencil_hopper.LAUNCHES > before
+        lams.append(solver.eigenvalues)
+    for lam in lams[1][:2]:
+        assert np.abs(lams[0] - lam).min() <= 1e-5 * abs(lam)

@@ -133,9 +133,14 @@ def test_double_slice_matches_jax(double_runs):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, iemic_tpu_torch, iemic_tpu_torch.main.run_ocean, "
-            "iemic_tpu_torch.interop, iemic_tpu_torch.ops.stencil_hopper; "
-            "print('jax' in sys.modules)")
+    modules = ["iemic_tpu_torch", "iemic_tpu_torch.main.run_ocean",
+               "iemic_tpu_torch.interop", "iemic_tpu_torch.ops.stencil_hopper",
+               "iemic_tpu_torch.native.milu"] + [
+        "iemic_tpu_torch.solvers." + name for name in (
+            "bgs", "eigen", "factory", "fgmres", "idr", "mg",
+            "preconditioner", "rearranger", "saddlepoint")]
+    code = (f"import sys, {', '.join(modules)}; "
+            "print('jax' in sys.modules or 'iemic_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "False"
