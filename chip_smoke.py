@@ -42,8 +42,8 @@ Phases, each printing its own line:
                 a 4x4x3 basin, whose pairs are held to the solver's limit
                 on the true pencil residual and to the dense spectrum;
                 then the analysis at 96x38x12, every solve held to 150
-                inner iterations, over one search space of 16 and, the
-                bound widened once, one restart: the Ritz values, which
+                inner iterations, over one search space of 16: the Ritz
+                values, which
                 pairs converged if any, each pair's true pencil residual,
                 solves, MV and launches; F and An unchanged to the bit
                 after both; and a solve with the shifted pencil J - 0.1 B
@@ -54,14 +54,35 @@ Phases, each printing its own line:
                 exit status, that every kernel launch went through the
                 wide f32 kernel, falling |F| and every solve's true
                 relative residual (< the tolerance, so < 1)
+  9. transient — (a) time_ocean on a copy of run/ocean/global at full
+                forcing (theta 1, dt 1e-3, adaptive; cut to three time
+                steps, see _spinup_copy): one line per time step (dt,
+                Newton iterations, |F|, MV and true relres per solve), the
+                tdata rows, timers and wall time per step; every step's
+                Newton converged, every launch through the wide f32
+                kernel, every solve below its tolerance, |x| finite and
+                nonzero.  (b) Two stochastic theta steps of that state
+                (seed of run/2dmoc/ams_params.xml; sigma and Newton
+                tolerance cut, see STOCHASTIC_CUTS): G only on the surface
+                S rows, Newton converged.  (c) Both f32 kernels on
+                the last J - B/(theta dt) against the f64 product.  (d)
+                AMS, TAMS and GPA on run/2dmoc's 4x32x16 grid, on the card
+                and on the CPU: the same iterations and time steps,
+                probability and MFPT to 1e-8 (the cuts are printed).  (e)
+                Seasonal forcing: F on the card against the CPU at three
+                times of the year.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
+The line before the last is the kernels' JSON record (launches of the
+main and transient phases; library_ms is cuSPARSE on the kernel phase's
+coefficients); the last line is {"ok": true, "device": {...}}.  Any failed
+check raises (exit code 1), and a run that outlasts WATCHDOG_S seconds
+prints its stack and exits with code 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import re
@@ -150,21 +171,71 @@ GLOBAL_THCM = {
                             "Wind Forcing": 1.0,
                             "Salinity Forcing": 0.1}}
 # the eigen phase's jdqz_params.xml.  "Solver tolerance" is the tightest
-# the shift-invert solves are asked for.  The search space of 16 is the
-# first bound on the analysis; "Max JD iterations" 17 lets it restart
-# once (Krylov-Schur, keeping 4 vectors) and fill the space again, 28
-# steps in all: the bound widened once
+# the shift-invert solves are asked for.  The analysis fills one search
+# space of 16 and stops ("Max JD iterations" 16): a Krylov-Schur restart
+# (17, 28 steps) took 136 s more at 96x38x12 and converged no pair either
+# (PERF.md), and the whole run must stay within half the smoke's limit
 JDQZ_PARAMS = {"Shift (real part)": 0.0, "Shift (imaginary part)": 0.0,
                "Number of eigenvalues": 2, "Tolerance": 1e-4,
-               "Max size search space": 16, "Max JD iterations": 17,
+               "Max size search space": 16, "Max JD iterations": 16,
                "Solver tolerance": 1e-3}
 # the kernel of the main path: the bundle's f32 coefficients on its
 # 96x38x12 grid take the wide kernel
 MAIN_ENTRY = "stencil_matvec_f32_wide"
+# the whole run must end within the smoke's 1200 s: a solve that falls
+# into a GMRES-IR tail of hours fails the run here instead
+WATCHDOG_S = 1140
 # FGMRES tolerance and Newton iterations of the main phase (see
 # _bundle_copy)
 SOLVE_TOL = 5e-2
 NEWTON_ITERS = 3
+# the transient phase: the time stepper's parameters, time steps of the
+# spin-up, stochastic steps after it (see _spinup_copy)
+TIMESTEPPER = os.path.join(REPO, "run", "ocean", "timestepper_params.xml")
+SPINUP_STEPS = 3
+SPINUP_NEWTON_TOL = 2e-3
+# the stochastic steps, at the bundle's dt 1e-3 from the spun-up state,
+# cut from the bundles' sigma 100 and Newton tolerance: with Newton
+# tolerance 2e-3 the third Newton update's solve stalls (its f32 inner
+# solve at 0.88-0.97) with |F| at 7e-2, for every sigma from 100 to 0.001;
+# with 0.1 the second step's first solve stalls at sigma 100, at dt 1e-3
+# and 1e-4 alike (scripts/transient_probe.py; PERF.md)
+STOCHASTIC_STEPS = 2
+STOCHASTIC_CUTS = {"sigma": 1.0, "Newton tolerance": 0.1}
+# the rare-event methods on run/2dmoc, the grid its ams_params.xml is
+# written for (4x32x16), on the card and, the same run, on the CPU.  What
+# is cut, and why (each printed on a line of its own):
+#  - Combined Forcing 0.001, where a few Newton steps from rest reach a
+#    steady state A (|F| 4e-6 after 6); the bundle's own states come from
+#    a continuation, and Newton from rest diverges at 0.01 and above;
+#  - direct solves (Amesos), where the bundle asks BGS + Mixed: the card's
+#    run must equal the CPU's to 1e-8, and the CPU's run must fit the
+#    smoke run (one BGS iteration takes 0.35 s on a CPU at this size);
+#  - sigma 1, where the bundle asks 100: at 100 the first implicit step's
+#    Newton explodes (|dx| 1e2 to 1e4) at every dt tried;
+#  - 3 experiments of the bundle's 100, 1 iteration, "maximum time" per
+#    method (AMS runs to 100 times it) so that each trajectory takes at
+#    most 2 time steps of the bundle's dt 1.0, of its 5e4;
+#  - B = A + 0.05 randn (|A| + 0.1), close enough that the noise reaches
+#    it within those steps, and "B distance" 0.85 (a score of 0.15 counts
+#    as converged): a smoke run of the methods, not an estimate of a rare
+#    event.
+AMS_BUNDLE = os.path.join(REPO, "run", "2dmoc")
+AMS_PARAMS = os.path.join(AMS_BUNDLE, "ams_params.xml")
+RARE_EVENT_FORCING = 0.001
+RARE_EVENT_NEWTON = 6
+RARE_EVENT_DISPLACEMENT = 0.05
+RARE_EVENT_SOLVER = {"Preconditioning": "Amesos", "FGMRES tolerance": 1e-10,
+                     "FGMRES iterations": 300}
+RARE_EVENT_CUTS = {
+    "sigma": 1.0, "number of experiments": 3,
+    "number of initial experiments": 3, "maximum iterations": 1,
+    "B distance": 0.85, "write file": ""}
+RARE_EVENT_METHODS = {"AMS": {"maximum time": 0.02},
+                      "TAMS": {"maximum time": 2.0},
+                      "GPA": {"maximum time": 1.0, "GPA time step": 1.0}}
+# times of the year at which the seasonal forcing is held card to CPU
+SEASON_TIMES = (0.1, 0.45, 0.8)
 
 
 def card() -> str:
@@ -224,6 +295,57 @@ def bound_ms(itemsize: int, l: int, m: int, n: int,
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def library_operator(An: torch.Tensor, periodic: bool) -> torch.Tensor:
+    """The operator of the stencil tensor An as a CUDA CSR tensor with
+    int32 indices and f32 values (ops.stencil.stencil_to_csr, which keeps
+    zero entries out), for cuSPARSE through torch.sparse: the library call
+    that computes the kernel's function, on flat vectors."""
+    from iemic_tpu_torch.ops.stencil import stencil_to_csr
+    data, indices, indptr = stencil_to_csr(An, periodic=periodic)
+    n = len(indptr) - 1
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(indptr.astype(np.int32)), torch.as_tensor(indices),
+        torch.as_tensor(data, dtype=torch.float32), size=(n, n),
+        device="cuda")
+
+
+def loop_ms(fn, reps: int = 21, batches: int = 5) -> float:
+    """Device time of one call, for a library call that a CUDA graph may
+    not capture: CUDA events around reps calls queued back to back, the
+    median of batches.  Only for calls whose device time exceeds the
+    host's enqueue."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def library_ms(hopper, An: torch.Tensor, AnK: torch.Tensor, x: torch.Tensor,
+               periodic: bool) -> tuple[float, int]:
+    """cuSPARSE's time for the kernel's function on the same coefficients
+    (An in f64, AnK their f32 copy) and x, after holding its product to
+    the plain version; returns (ms, stored nonzeros)."""
+    from iemic_tpu_torch.ops.stencil import to_flat
+    A = library_operator(An, periodic)
+    xf = to_flat(x.float()).contiguous()
+    y = A @ xf
+    ref = to_flat(hopper.apply_plain(AnK, x, periodic=periodic))
+    err, scale = float((y - ref).abs().max()), float(ref.abs().max())
+    if not err <= KTOL * scale:
+        raise AssertionError(f"cuSPARSE product disagrees: {err:.3e}")
+    return loop_ms(lambda: A @ xf), int(A.values().numel())
+
+
 def _check_kernel(hopper, AnK, x, periodic, what):
     """One launch against the plain version; returns (error, scale)."""
     y = hopper.apply_stencil_prepared(AnK, x, periodic=periodic)
@@ -246,7 +368,7 @@ def phase_kernel(hopper, card_line: str) -> dict:
     and with an x kept on the two edge columns in i, where a wrong wrap
     or zero boundary shows in every term.  Returns the record of each
     entry point at its first shape, periodic (the bundle's setting)."""
-    rec = {}
+    rec, lib = {}, {}
     for l, m, n in ((12, 38, 96), (12, 38, 97), (6, 6, 3)):
         g = torch.Generator(device="cuda").manual_seed(0)
         An = torch.randn((27, 6, 6, l, m, n), generator=g, device="cuda",
@@ -285,9 +407,18 @@ def phase_kernel(hopper, card_line: str) -> dict:
                       f"{need} coefficient bytes needed) "
                       f"[{card_line}]", flush=True)
                 if periodic and entry not in rec:
+                    if (l, m, n) not in lib:
+                        lib[(l, m, n)] = library_ms(hopper, An, AnK, x,
+                                                    periodic)
+                    lib_ms, nnz = lib[(l, m, n)]
+                    print(f"kernel library cuSPARSE (torch.sparse_csr_tensor,"
+                          f" int32 indices, f32 values, {nnz} nonzeros) of "
+                          f"the same coefficients at {(l, m, n)} periodic: "
+                          f"{lib_ms:.4f} ms, against {entry} {ms:.4f} ms "
+                          f"[{card_line}]", flush=True)
                     rec[entry] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=bound_by, library_ms=None)
+                        bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
             if (l, m, n) == (12, 38, 96):
                 # what the card's memory gives in practice: one read of
                 # all coefficients, the skipped ones too, by a PyTorch
@@ -340,7 +471,8 @@ def phase_assembly() -> None:
           "(rhs + Jacobian, first call)", flush=True)
 
 
-def _check_model_operator(hopper, o, vectors) -> None:
+def _check_model_operator(hopper, o, vectors,
+                          what: str = "effort model operator") -> None:
     """The wide and the general-shape f32 kernel on the model's own
     masked Jacobian and vectors of its solve, against the f64 product.
     Each output row A is held to KTOL times the largest sum of |terms|
@@ -373,7 +505,7 @@ def _check_model_operator(hopper, o, vectors) -> None:
         errs = {k: (y.double() - ref).abs().amax(dim=(1, 2, 3)) / scale
                 for k, y in (("wide", wide), ("general", general),
                              ("plain", plain))}
-        print(f"effort model operator x={name} periodic={periodic}: error "
+        print(f"{what} x={name} periodic={periodic}: error "
               "against the f64 product over the row's largest sum of "
               "|terms|, rows A=0..5: " + "; ".join(
                   f"{k} " + " ".join(f"{e:.2e}" for e in v.tolist())
@@ -415,6 +547,16 @@ def phase_effort(hopper, card_line: str):
                              f"package needs {EFFORT_MV} MV to reach "
                              f"{EFFORT_TOL:g}")
     _check_model_operator(hopper, o, (("-F", -o.rhs), ("dx", dx)))
+    # the kernel and cuSPARSE on this Jacobian, whose zero coefficients
+    # the CSR operator leaves out and the kernel reads
+    AnK = hopper.prepare(o.jac)
+    x = -o.rhs.float()
+    lib_ms, nnz = library_ms(hopper, o.jac, AnK, x, o.cfg.periodic)
+    ms = time_ms([lambda: hopper.apply_stencil_prepared(
+        AnK, x, periodic=o.cfg.periodic)])
+    print(f"effort model operator: {MAIN_ENTRY} {ms:.4f} ms, cuSPARSE "
+          f"{lib_ms:.4f} ms ({nnz} nonzeros of {AnK.numel()} coefficients) "
+          f"[{card_line}]", flush=True)
     return o
 
 
@@ -652,7 +794,7 @@ def _eigen_global(hopper, card_line: str) -> None:
     the BGS-preconditioned stack does not reach 1e-3 for the right-hand
     sides B v of the Arnoldi vectors, and a solve left to itself goes on
     for hours.  With such solves no pair need converge; the phase says
-    whether one did after the first search space and after the restart,
+    whether one did after each search space (one, with JDQZ_PARAMS),
     prints the leading Ritz values with their true pencil residuals, holds
     every pair the solver accepted to the solver's own limit, and checks
     that F and An are unchanged to the bit."""
@@ -892,6 +1034,358 @@ def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
     return by_entry
 
 
+def _spinup_copy(tmp: str) -> str:
+    """Copy run/ocean/global into tmp with run/ocean's
+    timestepper_params.xml (theta 1, dt 1e-3, adaptive, at most 10 Newton
+    iterations), for time_ocean.
+
+    What is changed, and why.  Combined Forcing starts at 1.0, the full
+    forcing and the continuation's destination: at the bundle's 0.0 the
+    forcing is zero and the state never leaves rest.  The run is cut to
+    SPINUP_STEPS time steps of the bundle's 100, so that it fits the smoke
+    run, and writes no HDF5 state ("HDF5 output frequency" 0): the card's
+    machine has no h5py.  The solves of J - B/(theta dt) stall as those of
+    the continuation's first step do (PERF.md): the second solve of
+    the first step reaches 7.6e-4, short of the bundle's 1e-4, and its
+    third stops at 0.25 and then 1.0; below where a solve stalls the
+    GMRES-IR tail runs for hours, and Newton converges only linearly, to
+    an |F| of about 1e-3 before a solve stalls.  So the copy asks FGMRES
+    tolerance SOLVE_TOL, as the main phase does, and Newton tolerance
+    SPINUP_NEWTON_TOL, where the bundle asks 1e-4 for both (at Newton
+    tolerance 1e-3 the second step's fifth solve stalls).  Absolute data
+    path, no checkpoint files."""
+    from iemic_tpu_torch.config import read_xml, write_xml
+    work = os.path.join(tmp, "spinup")
+    shutil.copytree(BUNDLE, work)
+    op = read_xml(os.path.join(work, "ocean_params.xml"))
+    op.set("Data directory", os.path.join(REPO, "data"))
+    op.set("Save state", False)
+    op.sublist("THCM").sublist("Starting Parameters").set(
+        "Combined Forcing", 1.0)
+    write_xml(op, os.path.join(work, "ocean_params.xml"))
+    sp = read_xml(os.path.join(work, "solver_params.xml"))
+    sp.set("FGMRES tolerance", SOLVE_TOL)
+    write_xml(sp, os.path.join(work, "solver_params.xml"))
+    tp = read_xml(TIMESTEPPER)
+    tp.set("number of time steps", SPINUP_STEPS)
+    tp.set("HDF5 output frequency", 0)
+    tp.set("Newton tolerance", SPINUP_NEWTON_TOL)
+    write_xml(tp, os.path.join(work, "timestepper_params.xml"))
+    return work
+
+
+def _time_steps(info: str) -> list[dict]:
+    """The spin-up's attempts at a time step, from time_ocean's
+    info_0.txt: dt, Newton |F| per iteration, MV and relres per solve,
+    and whether Newton converged."""
+    steps = []
+    for block in info.split("Timestepping: ")[1:]:
+        steps.append(dict(
+            dt=float(re.search(r"dt = (\S+)", block).group(1)),
+            F=[float(v) for v in re.findall(r"\|\|F\|\|=(\S+)", block)],
+            solves=[(int(a), float(b)) for a, b in re.findall(
+                r"FGMRES solve: (\d+) iters, relres=(\S+)", block)],
+            converged="Newton did not converge" not in block))
+    return steps
+
+
+def _profile(path: str) -> dict:
+    prof = {}
+    for line in open(path).read().splitlines()[1:]:
+        parts = line.rsplit(None, 3)
+        if len(parts) == 4:
+            prof[parts[0].strip()] = (float(parts[1]), float(parts[2]))
+    return prof
+
+
+def _spinup(hopper, card_line: str):
+    """(a) time_ocean on the masked global 96x38x12 grid at full width,
+    on the card.  Returns (ocean, stepper, launches by entry point)."""
+    from iemic_tpu_torch.config import read_xml
+    from iemic_tpu_torch.main import time_ocean
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = _spinup_copy(tmp)
+        tol = read_xml(os.path.join(work, "solver_params.xml")).get(
+            "FGMRES tolerance")
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        status, ocean, stepper = time_ocean.run(work, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by_entry = hopper.LAUNCHES, dict(hopper.LAUNCHES_BY_ENTRY)
+        info = open(os.path.join(work, "info_0.txt")).read()
+        tdata = open(os.path.join(work, "tdata.txt")).read()
+        prof = _profile(os.path.join(work, "profile_output"))
+    steps = _time_steps(info)
+    print(f"transient spin-up (time_ocean, masked global 96x38x12, Combined "
+          f"Forcing 1.0, theta {stepper.model.theta:g}) status={status} "
+          f"wall={wall:.1f} s, {stepper.time_steps} time steps, kernel "
+          f"launches={launches} {by_entry} [{card_line}]", flush=True)
+    for k, st in enumerate(steps):
+        print(f"transient step {k + 1}: dt {st['dt']:.6g}, Newton "
+              f"{len(st['F'])} iterations, {'converged' if st['converged'] else 'NOT converged'}, "
+              "|F| " + " ".join(f"{v:.3e}" for v in st["F"])
+              + " | MV " + " ".join(str(mv) for mv, _ in st["solves"])
+              + " | true relres " + " ".join(f"{r:.2e}" for _, r in st["solves"]),
+              flush=True)
+    for line in tdata.strip().splitlines():
+        print("transient tdata " + line, flush=True)
+    for key in ("Ocean: compute rhs", "Ocean: compute jacobian",
+                "Ocean: build preconditioner", "Ocean: solve"):
+        if key in prof:
+            print(f"transient timer {key}: {prof[key][0]:.3f} s over "
+                  f"{int(prof[key][1])} calls [{card_line}]", flush=True)
+    if stepper.time_steps:
+        print(f"transient wall per time step {wall / stepper.time_steps:.3f} "
+              f"s ({sum(len(st['F']) for st in steps)} Newton iterations, "
+              f"{sum(mv for st in steps for mv, _ in st['solves'])} MV) "
+              f"[{card_line}]", flush=True)
+
+    if status != 0 or stepper.time_steps != SPINUP_STEPS:
+        raise AssertionError(f"time_ocean returned {status} after "
+                             f"{stepper.time_steps} time steps")
+    if not steps or not all(st["converged"] for st in steps):
+        raise AssertionError("a time step's Newton did not converge")
+    if by_entry[MAIN_ENTRY] <= 0 or by_entry[MAIN_ENTRY] != launches:
+        raise AssertionError(f"the spin-up did not go through {MAIN_ENTRY} "
+                             f"alone: {by_entry}")
+    solves = [r for st in steps for _, r in st["solves"]]
+    if not solves or not all(np.isfinite(r) and r < tol for r in solves):
+        raise AssertionError(f"a solve missed its tolerance {tol:g}: {solves}")
+    rows = [ln.split() for ln in tdata.splitlines()
+            if ln.strip() and not ln.startswith("#")]
+    norms = [float(r[3]) for r in rows]
+    if len(rows) != SPINUP_STEPS or not all(np.isfinite(v) and v > 0
+                                            for v in norms):
+        raise AssertionError(f"tdata |x| not finite and nonzero: {rows}")
+    return ocean, stepper, by_entry
+
+
+def _stochastic_steps(hopper, ocean, stepper, card_line: str):
+    """(b) Two stochastic theta steps of the spun-up state at the bundle's
+    dt, through factory.get_time_step, with the seed of
+    run/2dmoc/ams_params.xml and STOCHASTIC_CUTS.  G must be zero off the
+    surface S rows (and on the integral row, where the configuration has
+    one).  Returns the launches by entry point and the stochastic
+    model."""
+    from iemic_tpu_torch.config import read_xml
+    from iemic_tpu_torch.ops.stencil import SS
+    from iemic_tpu_torch.transient.factory import get_time_step
+    from iemic_tpu_torch.transient.theta import StochasticThetaModel
+
+    ams = read_xml(AMS_PARAMS)
+    pars = dict(read_xml(TIMESTEPPER).items())
+    pars.update(sigma=ams.get("sigma"), seed=ams.get("seed", 0))
+    pars.update(STOCHASTIC_CUTS)
+    model = StochasticThetaModel(ocean, pars)
+    step = get_time_step(model, pars)
+    l = ocean.cfg.l
+    surface = torch.zeros_like(ocean.state, dtype=torch.bool)
+    surface[SS, l - 1] = torch.as_tensor(ocean.landm[l, 1:-1, 1:-1] == 0,
+                                         device=surface.device)
+    if ocean.cfg.sres == 0:
+        surface[ocean.rowintcon] = False
+    x = ocean.get_state()
+    dt = pars["time step"]
+    for key in STOCHASTIC_CUTS:
+        print(f"transient stochastic steps cut: {key} = {pars[key]}",
+              flush=True)
+    hopper.reset_launches()
+    for k in range(STOCHASTIC_STEPS):
+        t0 = time.perf_counter()
+        x = step(x, dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        G = model.G
+        off = float(G[~surface].abs().max())
+        print(f"transient stochastic step {k + 1} (sigma {model.sigma:g}, "
+              f"seed {pars['seed']}, dt {dt:g}): Newton "
+              f"{step.newton.steps} iterations, "
+              f"{'converged' if step.newton.converged else 'NOT converged'}, "
+              f"|F| {step.newton.norm_F:.3e}, max |G| on surface S rows "
+              f"{float(G[surface].abs().max()):.3e}, elsewhere {off:.1e}, "
+              f"MV {ocean.solve_iters}, {wall:.3f} s [{card_line}]",
+              flush=True)
+        if not (step.newton.converged and off == 0.0
+                and float(G[surface].abs().max()) > 0.0):
+            raise AssertionError(f"stochastic step {k + 1}: converged "
+                                 f"{step.newton.converged}, |G| off the "
+                                 f"surface S rows {off}")
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError("stochastic steps: state not finite")
+    return dict(hopper.LAUNCHES_BY_ENTRY), model
+
+
+def _rare_event_ocean(device: str):
+    """run/2dmoc's ocean on device at RARE_EVENT_FORCING, with
+    RARE_EVENT_SOLVER."""
+    from iemic_tpu_torch.config import read_xml
+    from iemic_tpu_torch.models.ocean import Ocean
+
+    op = read_xml(os.path.join(AMS_BUNDLE, "ocean_params.xml"))
+    op.set("Save state", False)
+    op.sublist("THCM").sublist("Starting Parameters").set(
+        "Combined Forcing", RARE_EVENT_FORCING)
+    return Ocean(op, solver_params=dict(RARE_EVENT_SOLVER), device=device)
+
+
+def _rare_event_states(o):
+    """A, a steady state from RARE_EVENT_NEWTON Newton steps from rest, and
+    B, displaced from it, as tests/test_stochastic_ocean.py makes them
+    (with a smaller displacement); and |F(A)|."""
+    solA = torch.zeros_like(o.state)
+    for _ in range(RARE_EVENT_NEWTON):
+        o.set_state(solA)
+        o.compute_rhs()
+        o.compute_jacobian()
+        solA = solA + o.solve(-o.rhs)
+    o.set_state(solA)
+    o.compute_rhs()
+    rng = np.random.default_rng(3)
+    solB = solA + RARE_EVENT_DISPLACEMENT * o._tensor(
+        rng.standard_normal(tuple(solA.shape))) * (solA.abs() + 0.1)
+    return solA, solB, float(torch.linalg.vector_norm(o.rhs))
+
+
+def _rare_events_on(device: str, solA, solB) -> dict:
+    """AMS, TAMS and GPA between A and B (held in memory, moved to device)
+    with run/2dmoc/ams_params.xml cut by RARE_EVENT_CUTS."""
+    from iemic_tpu_torch.config import read_xml
+    from iemic_tpu_torch.transient import transient_factory
+    from iemic_tpu_torch.utils import logging as log
+
+    o = _rare_event_ocean(device)
+    solA, solB = solA.to(device), solB.to(device)
+    pars = dict(read_xml(AMS_PARAMS).items())
+    pars.update(RARE_EVENT_CUTS)
+    out = {}
+    log.set_verbose(False)
+    try:
+        for method, cut in RARE_EVENT_METHODS.items():
+            o.set_state(solA)
+            tr = transient_factory(o, dict(pars, method=method, **cut),
+                                   sol1=solA, sol2=solB)
+            t0 = time.perf_counter()
+            status = tr.run()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out[method] = dict(status=status, its=tr.its,
+                               time_steps=tr.time_steps,
+                               probability=tr.get_probability(),
+                               mfpt=tr.get_mfpt(),
+                               seconds=time.perf_counter() - t0)
+    finally:
+        log.set_verbose(True)
+    return out
+
+
+def _rare_events(card_line: str) -> None:
+    """(d) The rare-event methods on the grid of the repo's only
+    ams_params.xml, on the card and, the same run, on the CPU."""
+    from iemic_tpu_torch.utils import logging as log
+    cuts = dict(RARE_EVENT_CUTS, **{
+        "Combined Forcing": RARE_EVENT_FORCING,
+        "solver": RARE_EVENT_SOLVER["Preconditioning"],
+        "B displacement": RARE_EVENT_DISPLACEMENT})
+    for method, cut in RARE_EVENT_METHODS.items():
+        cuts.update({f"{method} {k}": v for k, v in cut.items()})
+    for key, val in cuts.items():
+        print(f"transient rare events cut: {key} = {val}", flush=True)
+    log.set_verbose(False)
+    try:
+        solA, solB, fa = _rare_event_states(_rare_event_ocean("cuda"))
+    finally:
+        log.set_verbose(True)
+    print(f"transient rare events: run/2dmoc 4x32x16, A from "
+          f"{RARE_EVENT_NEWTON} Newton steps on the card, |F(A)| {fa:.3e}",
+          flush=True)
+    runs = {d: _rare_events_on(d, solA, solB) for d in ("cuda", "cpu")}
+    for method in RARE_EVENT_METHODS:
+        c, h = runs["cuda"][method], runs["cpu"][method]
+        print(f"transient {method}: probability {c['probability']!r} (cpu "
+              f"{h['probability']!r}), mfpt {c['mfpt']!r} (cpu "
+              f"{h['mfpt']!r}), its {c['its']} (cpu {h['its']}), time steps "
+              f"{c['time_steps']} (cpu {h['time_steps']}), {c['seconds']:.1f} "
+              f"s on the card, {h['seconds']:.1f} s on the cpu "
+              f"[{card_line}]", flush=True)
+        same = (c["status"] == h["status"] == 0 and c["its"] == h["its"]
+                and c["time_steps"] == h["time_steps"] > 0
+                and all(np.isfinite(c[k]) and abs(c[k] - h[k])
+                        <= 1e-8 * max(1.0, abs(h[k]))
+                        for k in ("probability", "mfpt")))
+        if not same:
+            raise AssertionError(f"{method}: the card's run differs from "
+                                 f"the cpu's, or is not finite: {c} "
+                                 f"against {h}")
+
+
+def _seasonal(card_line: str) -> None:
+    """(e) Seasonal forcing: random monthly fields installed on a small
+    grid, F on the card against the CPU at three times of the year."""
+    from iemic_tpu_torch import interop
+    from iemic_tpu_torch.models.ocean import Ocean
+    from iemic_tpu_torch.models.ocean.forcing_data import (R0DIM,
+                                                           SECS_PER_YEAR, UDIM)
+
+    rng = np.random.default_rng(5)
+    l, m, n = 3, 4, 4
+    monthly = {k: rng.standard_normal((12, m, n))
+               for k in ("mtaux", "mtauy", "mtatm", "memip")}
+    x = 0.1 * rng.standard_normal((6, l, m, n))
+    year = SECS_PER_YEAR / (R0DIM / UDIM)     # nondimensional year
+    rhs = {}
+    for device in ("cuda", "cpu"):
+        o = Ocean({"THCM": {
+            "Global Grid-Size n": n, "Global Grid-Size m": m,
+            "Global Grid-Size l": l, "Levitus T": 0, "Levitus S": 0,
+            "Wind Forcing Type": 1, "Time Dependent Forcing": True,
+            "Starting Parameters": {"Combined Forcing": 1.0,
+                                    "Temperature Forcing": 10.0,
+                                    "Salinity Forcing": 1.0,
+                                    "Wind Forcing": 1.0}}}, device=device)
+        interop.install_monthly_forcing(o, **monthly)
+        interop.install_state(o, x)
+        rhs[device] = []
+        for t in SEASON_TIMES:
+            o.set_par("Time", t * year)
+            o.compute_rhs()
+            rhs[device].append(o.rhs.cpu())
+    for t, a, b in zip(SEASON_TIMES, rhs["cuda"], rhs["cpu"]):
+        err = float((a - b).abs().max() / b.abs().max())
+        print(f"transient seasonal forcing at {t:g} year: F cuda-vs-cpu "
+              f"relative max error {err:.3e} (limit {ATOL:.0e})", flush=True)
+        if not (err <= ATOL and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"seasonal forcing at {t:g} year: {err:.3e}")
+    if torch.equal(rhs["cpu"][0], rhs["cpu"][1]):
+        raise AssertionError("seasonal forcing: F does not follow the season")
+
+
+def phase_transient(hopper, card_line: str) -> dict:
+    """time_ocean's spin-up at full width, two stochastic steps of its
+    state, the kernel on its last shifted Jacobian, the rare-event methods
+    on the 2DMOC grid and the seasonal forcing.  Returns the kernel
+    launches of the transient path, (a) and (b), by entry point."""
+    t0 = time.perf_counter()
+    ocean, stepper, spinup = _spinup(hopper, card_line)
+    stochastic, model = _stochastic_steps(hopper, ocean, stepper, card_line)
+    by_entry = {k: spinup[k] + stochastic[k] for k in spinup}
+    print(f"transient phase launches (spin-up and stochastic steps) "
+          f"{by_entry}", flush=True)
+    print(f"transient (a)+(b) {time.perf_counter() - t0:.1f} s", flush=True)
+    # (c) ocean.jac is J - B/(theta dt) of the last Newton iteration, whose
+    # right-hand side was the theta residual and whose solution is ocean.sol
+    _check_model_operator(
+        hopper, ocean, (("theta residual", model.rhs), ("dx", ocean.sol)),
+        "transient J - B/(theta dt) of the last stochastic step,")
+    t0 = time.perf_counter()
+    _rare_events(card_line)
+    print(f"transient rare events {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _seasonal(card_line)
+    return by_entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -902,6 +1396,7 @@ def main() -> int:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     card_line = card()
     print(f"device {card_line}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -931,19 +1426,25 @@ def main() -> int:
     print(f"eigen phase {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     t0 = time.perf_counter()
-    launches = phase_main(hopper, card_line)
+    main_launches = phase_main(hopper, card_line)
     print(f"main phase {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"main phase launches {main_launches}", flush=True)
     if args.general_kernel:
         print("main phase once more, through stencil_matvec_f32:",
               flush=True)
         phase_main(hopper, card_line, "stencil_matvec_f32")
+    t0 = time.perf_counter()
+    transient_launches = phase_transient(hopper, card_line)
+    print(f"transient phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [dict(
         name=entry, route="cuda",
         source="iemic_tpu_torch/csrc/stencil_matvec.cu",
         replaces="iemic_tpu/ops/stencil_pallas.py:84",
-        launches=launches[entry], **rec[entry])
+        launches=main_launches[entry] + transient_launches[entry],
+        **rec[entry])
         for entry in hopper.ENTRIES]}))
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

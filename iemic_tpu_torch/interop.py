@@ -58,3 +58,13 @@ def install_land_mask(ocean, landm) -> None:
     mask-dependent operator of the ocean."""
     ocean.landm = np.asarray(landm)
     ocean._setup_mask_operators()
+
+
+def install_monthly_forcing(ocean, **monthly) -> None:
+    """Monthly fields of the seasonal cycle by name (mtaux, mtauy, mtatm,
+    memip: (12, m, n); mtemp, msalt: (12, l, m, n)) into the ocean's
+    ``monthly_forcing``, host-side numpy as the port keeps them, so that
+    both packages run the same seasonal cycle."""
+    for k, v in monthly.items():
+        setattr(ocean.monthly_forcing, k, np.array(v, dtype=np.float64))
+

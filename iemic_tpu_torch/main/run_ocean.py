@@ -52,13 +52,13 @@ def read_solver_params():
 
 
 @contextlib.contextmanager
-def bundle(workdir: str | None = None, device: str = "cuda"):
+def environment(workdir: str | None, device: str, prog: str):
     """Inside the with block the process works in workdir with the run's
-    log files open, and gets (ocean, continuation) as the bundle's
-    parameter files describe them on device, the JDQZ eigensolver attached
-    where there is a ``jdqz_params.xml``."""
+    log files open (info_0.txt, cdata.txt, a fresh profile), and gets the
+    bundle's ocean on device, as ocean_params.xml and the solver files
+    describe it.  Asking for cuda without a card raises."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_ocean: --device cuda but no CUDA device")
+        raise RuntimeError(f"{prog}: --device cuda but no CUDA device")
     cwd = os.getcwd()
     if workdir:
         os.chdir(workdir)
@@ -66,10 +66,24 @@ def bundle(workdir: str | None = None, device: str = "cuda"):
     try:
         from ..config import read_xml
         from ..models.ocean import Ocean
+        yield Ocean(read_xml("ocean_params.xml"),
+                    solver_params=read_solver_params(), device=device)
+    finally:
+        log.set_log_stream(sys.stdout)
+        stream.close()
+        os.chdir(cwd)
+
+
+@contextlib.contextmanager
+def bundle(workdir: str | None = None, device: str = "cuda"):
+    """Inside the with block the process works in workdir with the run's
+    log files open, and gets (ocean, continuation) as the bundle's
+    parameter files describe them on device, the JDQZ eigensolver attached
+    where there is a ``jdqz_params.xml``."""
+    with environment(workdir, device, "run_ocean") as ocean:
+        from ..config import read_xml
         from ..continuation import Continuation
 
-        ocean = Ocean(read_xml("ocean_params.xml"),
-                      solver_params=read_solver_params(), device=device)
         continuation = Continuation(ocean,
                                     read_xml("continuation_params.xml"))
         if os.path.exists("jdqz_params.xml"):
@@ -77,10 +91,6 @@ def bundle(workdir: str | None = None, device: str = "cuda"):
             continuation.set_eigen_solver(
                 JDQZ(ocean, read_xml("jdqz_params.xml")))
         yield ocean, continuation
-    finally:
-        log.set_log_stream(sys.stdout)
-        stream.close()
-        os.chdir(cwd)
 
 
 def run(workdir: str | None = None, device: str = "cuda"):

@@ -1,9 +1,10 @@
-"""Grid diagnostics: the overturning streamfunction (PyTorch).
+"""Grid diagnostics: overturning and barotropic streamfunctions
+(PyTorch).
 
-Port of ``psi_m`` / ``psi_min_max`` of
-``iemic_tpu/models/ocean/diagnostics.py`` (the reference's OceanGrid
-recomputePsiM, OceanGrid.C:269-345): the cdata max(psi)/min(psi)
-columns.
+Port of ``iemic_tpu/models/ocean/diagnostics.py`` (the reference's
+OceanGrid diagnostics, OceanGrid.C:269-430 recomputePsiM/recomputePsiB,
+OceanGrid.H:219 uMax/vMax): the cdata max(psi)/min(psi) columns and the
+maximum velocities.
 """
 
 from __future__ import annotations
@@ -34,3 +35,24 @@ def psi_m(x: torch.Tensor, grid: Grid, landm: np.ndarray) -> torch.Tensor:
 def psi_min_max(x, grid: Grid, landm: np.ndarray) -> tuple[float, float]:
     p = psi_m(x, grid, landm)
     return float(p.max()), float(p.min())
+
+
+def psi_b(x: torch.Tensor, grid: Grid, landm: np.ndarray) -> torch.Tensor:
+    """Barotropic streamfunction PsiB(j, i), j = 0..m, i = 0..n: depth
+    integral of u, then cumulative meridional integral
+    (OceanGrid.C:345-430)."""
+    l, n = grid.l, grid.n
+    U, V, W, P, T, S = nonlin.usol(x, landm, grid.periodic, grid)
+    kw = dict(dtype=x.dtype, device=x.device)
+    dzw = (grid.dz * torch.as_tensor(grid.dfzT, **kw))[:, None, None]
+    us = torch.sum(U[1:l + 1] * dzw, dim=0)                  # (m+1, n+1)
+    avg = 0.5 * (us[:-1, :] + us[1:, :]) * grid.dy           # (m, n+1)
+    psib = torch.cumsum(avg, dim=0)
+    return torch.cat([torch.zeros((1, n + 1), **kw), psib], dim=0)
+
+
+def max_velocities(x, grid: Grid, landm: np.ndarray) -> tuple[float, float]:
+    """Maximum |u| and |v| (OceanGrid.H:219 uMax/vMax)."""
+    U, V, W, P, T, S = nonlin.usol(x, landm, grid.periodic, grid)
+    umax, vmax = torch.stack([U.abs().max(), V.abs().max()]).tolist()
+    return umax, vmax

@@ -8,8 +8,8 @@ matrix-free Jacobian), forcing and the linear solve, all as tensors on
 one ``device`` in float64; the mixed-precision solve runs its inner
 Krylov operator in float32 through the Hopper stencil kernel.
 
-Not ported yet: land-mask swapping, stochastic forcing, flux probes,
-seasonal forcing and the legacy fort.3 output.
+Not ported yet: land-mask swapping (``Max mask fixes``, ROADMAP queue 1
+item 11) and the coupled flux components (item 12).
 """
 
 from __future__ import annotations
@@ -202,10 +202,6 @@ class Ocean:
         self._data_dir = data_dir
 
         t = params.sublist("THCM")
-        if t.get("Time Dependent Forcing"):
-            raise NotImplementedError(
-                "time-dependent (seasonal) forcing: ROADMAP queue 1 item 10 "
-                "(transient)")
         n = t.get("Global Grid-Size n")
         m = t.get("Global Grid-Size m")
         l = t.get("Global Grid-Size l")
@@ -270,6 +266,9 @@ class Ocean:
 
         # ---- forcing fields -----------------------------------------
         self.fields = ForcingFields(**self._read_forcing_fields(t, data_dir))
+        self._time = 0.0
+        self.monthly_forcing = self._make_monthly_forcing() \
+            if t.get("Time Dependent Forcing") else None
 
         dzne = self.grid.dz * self.grid.dfzT[l - 1]
         self.QTnd = c.R0DIM / (c.UDIM * c.CP0 * c.RHODIM
@@ -347,6 +346,27 @@ class Ocean:
                     ps, self.grid, self.landm, "SALT")
         return {k: self._tensor(v) for k, v in fields.items()}
 
+    def _make_monthly_forcing(self):
+        """Seasonal forcing (m_monthly, monthly.F90 init:24-55): annual
+        means from the data-driven fields on the host; the monthly slices
+        default to the annual mean and are installed afterwards
+        (``monthly_forcing.mtaux = ...``, like THCM.C:2591).  The
+        idealized profiles are regenerated inside ``forcing``."""
+        from .forcing_data import MonthlyForcing
+        f = self.fields
+
+        def host(v):
+            return None if v is None else v.cpu().numpy()
+
+        def annual(v):
+            return host(v) if v is not None else \
+                np.zeros((self.cfg.m, self.cfg.n))
+
+        return MonthlyForcing(
+            ataux=annual(f.taux), atauy=annual(f.tauy),
+            atatm=annual(f.tatm), aemip=annual(f.emip),
+            atemp=host(f.internal_temp), asalt=host(f.internal_salt))
+
     def _setup_mask_operators(self) -> None:
         """Build every operator that depends on the land mask: linear
         atoms, mixing, integral condition, preconditioner closures."""
@@ -374,14 +394,17 @@ class Ocean:
     # ------------------------------------------------------------------
     # residual, Jacobian, operator
     # ------------------------------------------------------------------
-    def _frc(self, par: torch.Tensor) -> torch.Tensor:
+    def _forcing(self, par: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        Frc = assembly.forcing(
+        return assembly.forcing(
             par, self.grid, self.landm, tres=cfg.tres, sres=cfg.sres,
             its=cfg.its, ite=cfg.ite, iza=cfg.iza,
             coupled_T=cfg.coupled_T, coupled_S=cfg.coupled_S,
             forcing_type=cfg.forcing_type, fields=self.fields)
-        return assembly.boundary_frc_zero(Frc, self.landm, self.grid)
+
+    def _frc(self, par: torch.Tensor) -> torch.Tensor:
+        return assembly.boundary_frc_zero(self._forcing(par), self.landm,
+                                          self.grid)
 
     def _lin(self, par: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -720,12 +743,43 @@ class Ocean:
         return self.sol
 
     def set_par(self, name: str, value: float) -> None:
+        if name == "Time":
+            # nondimensional time: with 'Time Dependent Forcing' the
+            # forcing fields follow the seasonal cycle (THCM::setParameter
+            # param==0, THCM.C:1883-1914)
+            self._set_time(value)
+            return
         idx = c.PAR_NAMES.get(name)
         if idx is None:
             log.WARNING(f"Ocean: unknown parameter '{name}'")
             return
         self.par = self.par.clone()
         self.par[idx] = value
+
+    def _set_time(self, t: float) -> None:
+        """Replace the seasonal forcing fields by their values at time t;
+        a negative t resets to the annual means (THCM.C:1904-1913)."""
+        self._time = t
+        mf = self.monthly_forcing
+        if mf is None:
+            return
+        tpars = self.params.sublist("THCM")
+        g = tpars.get("Seasonal Forcing", 1.0)
+        gW = g * tpars.get("Seasonal Forcing (Wind)", 1.0)
+        gT = g * tpars.get("Seasonal Forcing (Temperature)", 1.0)
+        gS = g * tpars.get("Seasonal Forcing (Salinity)", 1.0)
+        if t < 0.0:
+            t, gW, gT, gS = 0.0, 0.0, 0.0, 0.0
+        taux, tauy, tatm, emip = mf.update(t, gW, gT, gS)
+        repl = dict(taux=taux, tauy=tauy, tatm=tatm, emip=emip)
+        if mf.atemp is not None or mf.mtemp is not None:
+            temp, salt = mf.update_internal(t, gT, gS)
+            if temp is not None:
+                repl["internal_temp"] = temp
+            if salt is not None:
+                repl["internal_salt"] = salt
+        self.fields = self.fields._replace(
+            **{k: self._tensor(v) for k, v in repl.items()})
 
     def get_par(self, name: str) -> float:
         idx = c.PAR_NAMES.get(name)
@@ -746,10 +800,20 @@ class Ocean:
             z=g.z, xu=g.xu, yv=g.yv, zw=g.zw)
         par = self.par.cpu().numpy()
         pars = {c.INT2PAR[i]: float(par[i]) for i in range(c.NPAR)}
-        extras = {"MaskGlobal": np.asarray(self.landm)} \
-            if self.params.get("Save mask") else None
+        # additional exports (Ocean::additionalExports, Ocean.C:1904)
+        extras = {}
+        save_sal = self.params.get("Save salinity flux")
+        save_tem = self.params.get("Save temperature flux")
+        if save_sal or save_tem:
+            fx = self.surface_fluxes()
+            if save_sal:
+                extras["SalinityFlux"] = fx["SalinityFlux"]
+            if save_tem:
+                extras["TemperatureFlux"] = fx["TemperatureFlux"]
+        if self.params.get("Save mask"):
+            extras["MaskGlobal"] = np.asarray(self.landm)
         h5.save_state(filename, self.to_flat().cpu().numpy(), pars,
-                      grid_meta=grid_meta, extras=extras)
+                      grid_meta=grid_meta, extras=extras or None)
         log.INFO(f"Ocean: saved state to {filename}")
 
     def load_state_from_file(self, filename: str | None = None) -> int:
@@ -768,6 +832,80 @@ class Ocean:
         log.INFO(f"Ocean: loaded state from {filename}")
         return 0
 
+    # -- stochastic forcing (rare-event / stochastic time stepping) ----
+    def compute_stochastic_forcing(self):
+        """Stochastic salinity-flux forcing map B (reference
+        stochastic_forcing, forcing.F90:220-268, assembled by
+        THCM::computeForcing, THCM.C:836-935): one white-noise value per
+        latitude row scales the freshwater-flux forcing on the surface S
+        rows, evaluated with the salinity perturbation SPER off.
+
+        Returns ``apply(pert) -> (6, l, m, n)`` for a noise tensor of m
+        values on the model's device, with ``apply.n_noise = m``.  Land
+        surface rows and the salinity integral-condition row
+        (THCM.C:856-858) are zero."""
+        cfg = self.cfg
+        if cfg.coupled_S == 1:
+            raise RuntimeError("stochastic forcing requires an ocean "
+                               "with uncoupled salinity (forcing.F90:238)")
+        l = cfg.l
+        par0 = self.par.clone()
+        par0[c.SPER] = 0.0
+        w = self._forcing(par0)[SS, l - 1] \
+            * assembly._surf(self.landm, l, cfg.m, cfg.n, par0)
+        if cfg.sres == 0:
+            w[cfg.mic, cfg.nic] = 0.0
+        shape = tuple(self.state.shape)
+
+        def apply(pert: torch.Tensor) -> torch.Tensor:
+            G = torch.zeros(shape, dtype=w.dtype, device=w.device)
+            G[SS, l - 1] = w * pert[:, None]
+            return G
+
+        apply.n_noise = cfg.m
+        return apply
+
+    # -- surface flux probes (THCM::getFluxes, probe.F90:89-471) ------
+    def surface_fluxes(self) -> dict:
+        """Surface heat and freshwater flux fields as (m, n) numpy arrays:
+        the total T and S forcing rows of the surface layer
+        (forcing.F90:33-120).  The coupled components (shortwave,
+        sensible, latent, sea ice) come with the coupled forcing."""
+        if self.cfg.coupled_T == 1 or self.cfg.coupled_S == 1:
+            raise NotImplementedError(assembly._COUPLED)
+        Frc = self._frc(self.par)
+        return {"TemperatureFlux": Frc[TT, -1].cpu().numpy(),
+                "SalinityFlux": Frc[SS, -1].cpu().numpy()}
+
+    def get_s_corr(self) -> float:
+        """Salinity integral correction: the area average of the surface
+        salinity flux (THCM::getSCorr via get_salflux,
+        probe.F90:200-274)."""
+        if self.cfg.coupled_T == 1 or self.cfg.coupled_S == 1:
+            raise NotImplementedError(assembly._COUPLED)
+        flux = self._frc(self.par)[SS, -1]
+        return float(assembly.qint(flux, self.grid, self.landm))
+
+    def write_fort3(self, path: str = "fort.3") -> None:
+        """Legacy fort.3 text output (inout.F90:55-90 wrtbc): header,
+        parameter list, and the solution in the old natural ordering."""
+        g = self.grid
+        u = self.to_flat().cpu().numpy()
+        par = self.par.cpu().numpy()
+        npar, nf = len(par), 0
+        ndim = u.size
+        nskip = int((npar - 1) / 5 + 1) + 1 + nf
+        with open(path, "w") as fh:
+            fh.write("Version   0%4d%4d%4d%4d%4d%4d%4d%4d%12d%12d\n"
+                     % (1, 0, npar, nf, g.n, g.m, g.l, 6, ndim, nskip))
+            for i in range(0, npar, 5):
+                fh.write(" ".join("%18.10e" % v
+                                  for v in par[i:i + 5]) + "\n")
+            fh.write("%18.10e %16.8e %16.8e\n" % (0.0, 0.0, 0.0))
+            for v in u:
+                fh.write("%18.10e\n" % v)
+        log.INFO(f"Ocean: wrote legacy output to {path}")
+
     # -- hooks ---------------------------------------------------------
     def pre_process(self) -> None:
         pass
@@ -781,9 +919,7 @@ class Ocean:
                 self.save_state_to_file(self.params.get("Output file")
                                         + f".{self._pp_ctr}")
         if self.params.get("Use legacy fort.3 output"):
-            raise NotImplementedError(
-                "legacy fort.3 output: ROADMAP queue 1 item 9 "
-                "(ocean tooling)")
+            self.write_fort3()
 
     def monitor(self) -> bool:
         return False

@@ -245,3 +245,66 @@ def test_jdqz_on_card_matches_cpu():
         lams.append(solver.eigenvalues)
     for lam in lams[1][:2]:
         assert np.abs(lams[0] - lam).min() <= 1e-5 * abs(lam)
+
+
+def _theta_steps(device, stochastic):
+    """One theta step (dt 0.01) of the masked 8x8x4 grid from a random
+    state, BGS + Mixed at 1e-6, Newton to 1e-6; with stochastic, through
+    the stochastic theta model (sigma 1, seed 2)."""
+    from iemic_tpu_torch.transient.factory import get_time_step
+    from iemic_tpu_torch.transient.theta import (StochasticThetaModel,
+                                                 ThetaModel)
+    o = _island(device, {"Preconditioning": "BGS", "Precision": "Mixed",
+                         "FGMRES tolerance": 1e-6})
+    pars = {"theta": 1.0, "Newton tolerance": 1e-6, "sigma": 1.0, "seed": 2}
+    model = (StochasticThetaModel if stochastic else ThetaModel)(o, pars)
+    step = get_time_step(model, pars)
+    x = step(o.get_state(), 0.01)
+    assert step.newton.converged and x.device.type == device
+    return x.cpu(), model
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("stochastic", [False, True],
+                         ids=["theta", "stochastic"])
+def test_theta_step_on_card_matches_cpu(stochastic):
+    """A theta step and a stochastic theta step on the card against the
+    same step on the CPU: the state to 1e-6 relative (Newton to 1e-6 with
+    f32 inner solves summed in another order on each device); the noise,
+    drawn on the host, the same to the bit; the solves through the
+    kernel."""
+    before = stencil_hopper.LAUNCHES
+    x_card, m_card = _theta_steps("cuda", stochastic)
+    assert stencil_hopper.LAUNCHES > before
+    x_cpu, m_cpu = _theta_steps("cpu", stochastic)
+    far = float((x_card - x_cpu).abs().max() / x_cpu.abs().max())
+    assert far <= 1e-6, far
+    if stochastic:
+        assert torch.equal(m_card.G.cpu() != 0, m_cpu.G != 0)
+        torch.testing.assert_close(m_card.G.cpu(), m_cpu.G, rtol=1e-12,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_kernel_on_shifted_operator_on_card():
+    """The kernel on J - B/(theta dt) as ThetaModel builds it (a new
+    tensor, prepared again) against the plain version."""
+    from iemic_tpu_torch.transient.theta import ThetaModel
+    o = _island("cuda", {"Preconditioning": "BGS", "Precision": "Mixed"})
+    model = ThetaModel(o, {"theta": 1.0})
+    model.init_step(0.01)
+    model.compute_jacobian()
+    An = o.jac
+    assert float((An[4, 4, 4] - o._jacobian(o.state, o.par)[4, 4, 4])
+                 .abs().max()) == pytest.approx(100.0)
+    AnK = stencil_hopper.prepare(An)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        tuple(o.state.shape)), dtype=torch.float32, device="cuda")
+    before = stencil_hopper.LAUNCHES
+    y = stencil_hopper.apply_stencil_prepared(AnK, x, periodic=False)
+    assert stencil_hopper.LAUNCHES == before + 1
+    torch.testing.assert_close(
+        y, stencil_hopper.apply_plain(AnK, x, periodic=False),
+        rtol=2e-5, atol=2e-5)

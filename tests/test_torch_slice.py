@@ -134,11 +134,18 @@ def test_double_slice_matches_jax(double_runs):
 
 def test_port_never_imports_jax():
     modules = ["iemic_tpu_torch", "iemic_tpu_torch.main.run_ocean",
+               "iemic_tpu_torch.main.time_ocean",
+               "iemic_tpu_torch.main.run_ams",
                "iemic_tpu_torch.interop", "iemic_tpu_torch.ops.stencil_hopper",
-               "iemic_tpu_torch.native.milu"] + [
+               "iemic_tpu_torch.native.milu",
+               "iemic_tpu_torch.models.ocean.diagnostics",
+               "iemic_tpu_torch.utils.numjac",
+               "iemic_tpu_torch.utils.hashing"] + [
         "iemic_tpu_torch.solvers." + name for name in (
             "bgs", "eigen", "factory", "fgmres", "idr", "mg",
-            "preconditioner", "rearranger", "saddlepoint")]
+            "preconditioner", "rearranger", "saddlepoint")] + [
+        "iemic_tpu_torch.transient." + name for name in (
+            "theta", "newton", "adaptive", "transient", "score", "factory")]
     code = (f"import sys, {', '.join(modules)}; "
             "print('jax' in sys.modules or 'iemic_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
