@@ -198,8 +198,9 @@ SPINUP_NEWTON_TOL = 2e-3
 # cut from the bundles' sigma 100 and Newton tolerance: with Newton
 # tolerance 2e-3 the third Newton update's solve stalls (its f32 inner
 # solve at 0.88-0.97) with |F| at 7e-2, for every sigma from 100 to 0.001;
-# with 0.1 the second step's first solve stalls at sigma 100, at dt 1e-3
-# and 1e-4 alike (scripts/transient_probe.py; PERF.md)
+# at sigma 100 a solve of the second step stalls, at dt 1e-3 with Newton
+# tolerance 0.1 and at dt 1e-4 with 2e-3 (scripts/transient_probe.py;
+# PERF.md)
 STOCHASTIC_STEPS = 2
 STOCHASTIC_CUTS = {"sigma": 1.0, "Newton tolerance": 0.1}
 # the rare-event methods on run/2dmoc, the grid its ams_params.xml is
