@@ -23,7 +23,8 @@ Phases, each printing its own line:
                 the JAX package (69 MV to relres 6.92e-4): the port must
                 meet the tolerance with MV within 10% of that record;
                 then both f32 kernels on that model's own Jacobian and
-                the solve's vectors against the f64 product
+                the solve's vectors against the f64 product, and every
+                entry point and cuSPARSE timed on that Jacobian
   6. variants — on the effort phase's model and Jacobian, one Mixed
                 solve of J x = -F at tol 1e-3, capped at 150 inner
                 iterations, for each other branch of the BGS sweep
@@ -66,17 +67,26 @@ Phases, each printing its own line:
                 tolerance cut, see STOCHASTIC_CUTS): G only on the surface
                 S rows, Newton converged.  (c) Both f32 kernels on
                 the last J - B/(theta dt) against the f64 product.  (d)
-                AMS, TAMS and GPA on run/2dmoc's 4x32x16 grid, on the card
-                and on the CPU: the same iterations and time steps,
-                probability and MFPT to 1e-8 (the cuts are printed).  (e)
+                run_ams's AMS, TAMS and GPA on run/2dmoc's 4x32x16 grid
+                with direct solves, on the card and on the CPU: the same
+                iterations and time steps, probability and MFPT to 1e-8;
+                then RARE_EVENT_STEPS of the methods' stochastic step with
+                the bundle's BGS + Mixed on the card: Newton converged at
+                the cut tolerance, every solve within its tolerance,
+                every launch through the wide f32 kernel, and the state's
+                difference from the CPU's direct step printed per unknown
+                (the cuts are printed).  (e)
                 Seasonal forcing: F on the card against the CPU at three
                 times of the year.
 
-The line before the last is the kernels' JSON record (launches of the
-main and transient phases; library_ms is cuSPARSE on the kernel phase's
-coefficients); the last line is {"ok": true, "device": {...}}.  Any failed
-check raises (exit code 1), and a run that outlasts WATCHDOG_S seconds
-prints its stack and exits with code 1.
+The line before the last is the kernels' JSON record: ms, plain_ms and
+bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
+on the effort phase's periodic 96x38x12 Jacobian, the main path's own
+operator, whose zero coefficients CSR leaves out (the effort line gives
+every entry point's time on it beside cuSPARSE); launches of the main
+and transient phases.  The last line is {"ok": true, "device": {...}}.
+Any failed check raises (exit code 1), and a run that outlasts
+WATCHDOG_S seconds prints its stack and exits with code 1.
 """
 
 from __future__ import annotations
@@ -199,19 +209,25 @@ SPINUP_NEWTON_TOL = 2e-3
 # tolerance 2e-3 the third Newton update's solve stalls (its f32 inner
 # solve at 0.88-0.97) with |F| at 7e-2, for every sigma from 100 to 0.001;
 # at sigma 100 a solve of the second step stalls, at dt 1e-3 with Newton
-# tolerance 0.1 and at dt 1e-4 with 2e-3 (scripts/transient_probe.py;
-# PERF.md)
+# tolerance 0.1 and at dt 1e-4 with 2e-3 (PERF.md).  Each step of (a) and
+# (b) prints whether it reached the bundle's Newton tolerance as well
 STOCHASTIC_STEPS = 2
 STOCHASTIC_CUTS = {"sigma": 1.0, "Newton tolerance": 0.1}
-# the rare-event methods on run/2dmoc, the grid its ams_params.xml is
-# written for (4x32x16), on the card and, the same run, on the CPU.  What
-# is cut, and why (each printed on a line of its own):
+# the rare-event methods: run_ams on a copy of run/2dmoc, the grid its
+# ams_params.xml is written for (4x32x16), on the card and, the same run,
+# on the CPU, with direct solves (Amesos) on both: the methods' layers on
+# the card's tensors, the linear algebra on the host.  What is cut, and
+# why (each printed on a line of its own):
+#  - direct solves, where the bundle asks BGS + Mixed: with BGS + Mixed
+#    the f32 inner solve of a step's second Newton update stalls and the
+#    solve falls into the GMRES-IR tail, at FGMRES tolerance 1e-3 and
+#    5e-2 alike, and a step of one Newton update leaves out the flow's
+#    response to the noise (below), so that AMS finds no initial
+#    trajectory within its time (ROADMAP queue 3).  The bundle's solver
+#    runs the methods' step instead (RARE_EVENT_STEPS);
 #  - Combined Forcing 0.001, where a few Newton steps from rest reach a
 #    steady state A (|F| 4e-6 after 6); the bundle's own states come from
 #    a continuation, and Newton from rest diverges at 0.01 and above;
-#  - direct solves (Amesos), where the bundle asks BGS + Mixed: the card's
-#    run must equal the CPU's to 1e-8, and the CPU's run must fit the
-#    smoke run (one BGS iteration takes 0.35 s on a CPU at this size);
 #  - sigma 1, where the bundle asks 100: at 100 the first implicit step's
 #    Newton explodes (|dx| 1e2 to 1e4) at every dt tried;
 #  - 3 experiments of the bundle's 100, 1 iteration, "maximum time" per
@@ -220,14 +236,15 @@ STOCHASTIC_CUTS = {"sigma": 1.0, "Newton tolerance": 0.1}
 #  - B = A + 0.05 randn (|A| + 0.1), close enough that the noise reaches
 #    it within those steps, and "B distance" 0.85 (a score of 0.15 counts
 #    as converged): a smoke run of the methods, not an estimate of a rare
-#    event.
+#    event;
+#  - A and B held in memory (run_ams's states), as the card's machine
+#    has no h5py to read the bundle's .h5 states.
 AMS_BUNDLE = os.path.join(REPO, "run", "2dmoc")
-AMS_PARAMS = os.path.join(AMS_BUNDLE, "ams_params.xml")
 RARE_EVENT_FORCING = 0.001
 RARE_EVENT_NEWTON = 6
 RARE_EVENT_DISPLACEMENT = 0.05
-RARE_EVENT_SOLVER = {"Preconditioning": "Amesos", "FGMRES tolerance": 1e-10,
-                     "FGMRES iterations": 300}
+RARE_EVENT_DIRECT = {"Preconditioning": "Amesos",
+                     "FGMRES tolerance": 1e-10, "FGMRES iterations": 300}
 RARE_EVENT_CUTS = {
     "sigma": 1.0, "number of experiments": 3,
     "number of initial experiments": 3, "maximum iterations": 1,
@@ -235,6 +252,21 @@ RARE_EVENT_CUTS = {
 RARE_EVENT_METHODS = {"AMS": {"maximum time": 0.02},
                       "TAMS": {"maximum time": 2.0},
                       "GPA": {"maximum time": 1.0, "GPA time step": 1.0}}
+# the step that the methods repeat, RARE_EVENT_STEPS steps of dt 1.0
+# from A, on the card with the bundle's BGS + Mixed solves (their f32
+# inner operator is the wide kernel), beside the CPU's direct solves from
+# the same state with the same noise.  Newton tolerance 1e-2 and FGMRES
+# tolerance SOLVE_TOL, where the bundles ask 1e-4 and 1e-3: a step then
+# takes one Newton update, whose solve ends at the f32 inner solve's
+# stall at a true relative residual of 3e-3 to 2e-2 (see above).  The
+# step is held to the solve's contract, not to the direct step: the
+# update leaves u, v, w, p and T where they were (the residual of the w
+# and p rows is small in the row-scaled norm the solve measures), so the
+# state differs from the direct one by all of the flow's response.  Each
+# step prints that difference per unknown
+RARE_EVENT_STEPS = 3
+RARE_EVENT_STEP_CUTS = {"FGMRES tolerance": SOLVE_TOL,
+                        "Newton tolerance": 1e-2}
 # times of the year at which the seasonal forcing is held card to CPU
 SEASON_TIMES = (0.1, 0.45, 0.8)
 
@@ -419,7 +451,7 @@ def phase_kernel(hopper, card_line: str) -> dict:
                           f"[{card_line}]", flush=True)
                     rec[entry] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+                        bound_ms=bound, bound_by=bound_by)
             if (l, m, n) == (12, 38, 96):
                 # what the card's memory gives in practice: one read of
                 # all coefficients, the skipped ones too, by a PyTorch
@@ -525,7 +557,8 @@ def phase_effort(hopper, card_line: str):
     global grid at its initial state, Combined Forcing 0.1, default BGS
     parameters, Mixed, tol 1e-3, b = -F), whose MV the repo records for
     the JAX package: the port's preconditioner must do as well.  Returns
-    the model, with F and the Jacobian of that state."""
+    the model, with F and the Jacobian of that state, and cuSPARSE's ms on
+    that Jacobian."""
     from iemic_tpu_torch.models.ocean import Ocean
 
     o = Ocean({"THCM": dict(GLOBAL_THCM)},
@@ -548,17 +581,42 @@ def phase_effort(hopper, card_line: str):
                              f"package needs {EFFORT_MV} MV to reach "
                              f"{EFFORT_TOL:g}")
     _check_model_operator(hopper, o, (("-F", -o.rhs), ("dx", dx)))
-    # the kernel and cuSPARSE on this Jacobian, whose zero coefficients
-    # the CSR operator leaves out and the kernel reads
-    AnK = hopper.prepare(o.jac)
+    return o, _model_library_ms(hopper, o, card_line)
+
+
+def _model_library_ms(hopper, o, card_line: str) -> float:
+    """Every entry point and cuSPARSE on the model's own Jacobian, whose
+    zero coefficients the CSR operator leaves out and the kernels read:
+    the library call's time on the main path's operator.  The
+    general-shape kernels are made to run at 96x38x12 by an x 4 bytes off
+    a 16-byte boundary.  Returns cuSPARSE's ms."""
+    periodic = o.cfg.periodic
     x = -o.rhs.float()
-    lib_ms, nnz = library_ms(hopper, o.jac, AnK, x, o.cfg.periodic)
-    ms = time_ms([lambda: hopper.apply_stencil_prepared(
-        AnK, x, periodic=o.cfg.periodic)])
-    print(f"effort model operator: {MAIN_ENTRY} {ms:.4f} ms, cuSPARSE "
-          f"{lib_ms:.4f} ms ({nnz} nonzeros of {AnK.numel()} coefficients) "
-          f"[{card_line}]", flush=True)
-    return o
+    off = torch.empty(x.numel() + 1, device=x.device,
+                      dtype=x.dtype)[1:].view_as(x).copy_(x)
+    lib_ms, nnz = library_ms(hopper, o.jac, hopper.prepare(o.jac), x,
+                             periodic)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        AnK = hopper.prepare(o.jac, dtype)
+        copies = [AnK, AnK.clone(), AnK.clone()]     # see time_ms
+        for v in (x, off):
+            before = dict(hopper.LAUNCHES_BY_ENTRY)
+            hopper.apply_stencil_prepared(AnK, v, periodic=periodic)
+            entry = next(k for k in hopper.ENTRIES
+                         if hopper.LAUNCHES_BY_ENTRY[k] != before[k])
+            times[entry] = time_ms([
+                lambda a=a, v=v: hopper.apply_stencil_prepared(
+                    a, v, periodic=periodic) for a in copies])
+        del AnK, copies
+    print(f"effort model operator (periodic 96x38x12 Jacobian): cuSPARSE "
+          f"{lib_ms:.4f} ms ({nnz} nonzeros of {o.jac.numel()} "
+          f"coefficients); " + ", ".join(f"{k} {v:.4f} ms"
+                                          for k, v in times.items())
+          + f" [{card_line}]", flush=True)
+    if set(times) != set(hopper.ENTRIES):
+        raise AssertionError(f"model operator: entry points timed {times}")
+    return lib_ms
 
 
 def _set_solver(o, prec: dict, **solver) -> None:
@@ -1099,6 +1157,12 @@ def _profile(path: str) -> dict:
     return prof
 
 
+def _bundle_newton_tol() -> float:
+    """The Newton tolerance that run/ocean/timestepper_params.xml asks."""
+    from iemic_tpu_torch.config import read_xml
+    return read_xml(TIMESTEPPER).get("Newton tolerance")
+
+
 def _spinup(hopper, card_line: str):
     """(a) time_ocean on the masked global 96x38x12 grid at full width,
     on the card.  Returns (ocean, stepper, launches by entry point)."""
@@ -1119,17 +1183,27 @@ def _spinup(hopper, card_line: str):
         tdata = open(os.path.join(work, "tdata.txt")).read()
         prof = _profile(os.path.join(work, "profile_output"))
     steps = _time_steps(info)
+    bundle_tol = _bundle_newton_tol()
     print(f"transient spin-up (time_ocean, masked global 96x38x12, Combined "
           f"Forcing 1.0, theta {stepper.model.theta:g}) status={status} "
           f"wall={wall:.1f} s, {stepper.time_steps} time steps, kernel "
           f"launches={launches} {by_entry} [{card_line}]", flush=True)
     for k, st in enumerate(steps):
+        reached = bool(st["F"]) and st["F"][-1] < bundle_tol
         print(f"transient step {k + 1}: dt {st['dt']:.6g}, Newton "
-              f"{len(st['F'])} iterations, {'converged' if st['converged'] else 'NOT converged'}, "
+              f"{len(st['F'])} iterations, "
+              f"{'converged' if st['converged'] else 'NOT converged'} at "
+              f"Newton tolerance {SPINUP_NEWTON_TOL:g}, the bundle's "
+              f"{bundle_tol:g} {'reached' if reached else 'NOT reached'}, "
               "|F| " + " ".join(f"{v:.3e}" for v in st["F"])
               + " | MV " + " ".join(str(mv) for mv, _ in st["solves"])
-              + " | true relres " + " ".join(f"{r:.2e}" for _, r in st["solves"]),
+              + " | true relres "
+              + " ".join(f"{r:.2e}" for _, r in st["solves"]),
               flush=True)
+    print(f"transient spin-up: "
+          f"{sum(bool(st['F']) and st['F'][-1] < bundle_tol for st in steps)}"
+          f" of {len(steps)} steps reached the bundle's Newton tolerance "
+          f"{bundle_tol:g}; the run asks {SPINUP_NEWTON_TOL:g}", flush=True)
     for line in tdata.strip().splitlines():
         print("transient tdata " + line, flush=True)
     for key in ("Ocean: compute rhs", "Ocean: compute jacobian",
@@ -1175,7 +1249,7 @@ def _stochastic_steps(hopper, ocean, stepper, card_line: str):
     from iemic_tpu_torch.transient.factory import get_time_step
     from iemic_tpu_torch.transient.theta import StochasticThetaModel
 
-    ams = read_xml(AMS_PARAMS)
+    ams = read_xml(os.path.join(AMS_BUNDLE, "ams_params.xml"))
     pars = dict(read_xml(TIMESTEPPER).items())
     pars.update(sigma=ams.get("sigma"), seed=ams.get("seed", 0))
     pars.update(STOCHASTIC_CUTS)
@@ -1192,6 +1266,8 @@ def _stochastic_steps(hopper, ocean, stepper, card_line: str):
     for key in STOCHASTIC_CUTS:
         print(f"transient stochastic steps cut: {key} = {pars[key]}",
               flush=True)
+    bundle_tol = _bundle_newton_tol()
+    reached = 0
     hopper.reset_launches()
     for k in range(STOCHASTIC_STEPS):
         t0 = time.perf_counter()
@@ -1200,10 +1276,15 @@ def _stochastic_steps(hopper, ocean, stepper, card_line: str):
         wall = time.perf_counter() - t0
         G = model.G
         off = float(G[~surface].abs().max())
+        ok = step.newton.norm_F < bundle_tol
+        reached += ok
         print(f"transient stochastic step {k + 1} (sigma {model.sigma:g}, "
               f"seed {pars['seed']}, dt {dt:g}): Newton "
               f"{step.newton.steps} iterations, "
-              f"{'converged' if step.newton.converged else 'NOT converged'}, "
+              f"{'converged' if step.newton.converged else 'NOT converged'}"
+              f" at Newton tolerance {pars['Newton tolerance']:g}, the "
+              f"bundle's {bundle_tol:g} "
+              f"{'reached' if ok else 'NOT reached'}, "
               f"|F| {step.newton.norm_F:.3e}, max |G| on surface S rows "
               f"{float(G[surface].abs().max()):.3e}, elsewhere {off:.1e}, "
               f"MV {ocean.solve_iters}, {wall:.3f} s [{card_line}]",
@@ -1213,28 +1294,58 @@ def _stochastic_steps(hopper, ocean, stepper, card_line: str):
             raise AssertionError(f"stochastic step {k + 1}: converged "
                                  f"{step.newton.converged}, |G| off the "
                                  f"surface S rows {off}")
+    print(f"transient stochastic steps: {reached} of {STOCHASTIC_STEPS} "
+          f"reached the bundle's Newton tolerance {bundle_tol:g}; the run "
+          f"asks {pars['Newton tolerance']:g}", flush=True)
     if not bool(torch.isfinite(x).all()):
         raise AssertionError("stochastic steps: state not finite")
     return dict(hopper.LAUNCHES_BY_ENTRY), model
 
 
-def _rare_event_ocean(device: str):
-    """run/2dmoc's ocean on device at RARE_EVENT_FORCING, with
-    RARE_EVENT_SOLVER."""
-    from iemic_tpu_torch.config import read_xml
-    from iemic_tpu_torch.models.ocean import Ocean
-
-    op = read_xml(os.path.join(AMS_BUNDLE, "ocean_params.xml"))
+def _ams_copy(tmp: str, name: str, solver: dict | None) -> str:
+    """Copy run/2dmoc into tmp/name at RARE_EVENT_FORCING, its solver
+    files replaced by solver where one is given, else its FGMRES
+    tolerance cut as RARE_EVENT_STEP_CUTS says."""
+    from iemic_tpu_torch.config import ParameterList, read_xml, write_xml
+    work = os.path.join(tmp, name)
+    shutil.copytree(AMS_BUNDLE, work)
+    op = read_xml(os.path.join(work, "ocean_params.xml"))
     op.set("Save state", False)
     op.sublist("THCM").sublist("Starting Parameters").set(
         "Combined Forcing", RARE_EVENT_FORCING)
-    return Ocean(op, solver_params=dict(RARE_EVENT_SOLVER), device=device)
+    write_xml(op, os.path.join(work, "ocean_params.xml"))
+    path = os.path.join(work, "solver_params.xml")
+    if solver is not None:
+        os.remove(os.path.join(work, "ocean_preconditioner_params.xml"))
+        write_xml(ParameterList("Solver parameters", dict(solver)), path)
+    else:
+        sp = read_xml(path)
+        sp.set("FGMRES tolerance", RARE_EVENT_STEP_CUTS["FGMRES tolerance"])
+        write_xml(sp, path)
+    return work
 
 
-def _rare_event_states(o):
-    """A, a steady state from RARE_EVENT_NEWTON Newton steps from rest, and
-    B, displaced from it, as tests/test_stochastic_ocean.py makes them
-    (with a smaller displacement); and |F(A)|."""
+def _bundle_ocean(work: str, device: str):
+    """The ocean of the bundle copy work on device, as run_ams builds it."""
+    from iemic_tpu_torch.config import read_xml
+    from iemic_tpu_torch.main.run_ocean import read_solver_params
+    from iemic_tpu_torch.models.ocean import Ocean
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        return Ocean(read_xml("ocean_params.xml"),
+                     solver_params=read_solver_params(), device=device)
+    finally:
+        os.chdir(cwd)
+
+
+def _rare_event_states(work: str) -> tuple[dict, float]:
+    """A, a steady state from RARE_EVENT_NEWTON Newton steps from rest on
+    the CPU with the bundle copy's (direct) solves, and B, displaced from
+    it, as tests/test_stochastic_ocean.py makes them (with a smaller
+    displacement), as run_ams's states; and |F(A)|."""
+    o = _bundle_ocean(work, "cpu")
     solA = torch.zeros_like(o.state)
     for _ in range(RARE_EVENT_NEWTON):
         o.set_state(solA)
@@ -1246,70 +1357,105 @@ def _rare_event_states(o):
     rng = np.random.default_rng(3)
     solB = solA + RARE_EVENT_DISPLACEMENT * o._tensor(
         rng.standard_normal(tuple(solA.shape))) * (solA.abs() + 0.1)
-    return solA, solB, float(torch.linalg.vector_norm(o.rhs))
+    return ({"solution 1": o.to_flat(solA).numpy(),
+             "solution 2": o.to_flat(solB).numpy()},
+            float(torch.linalg.vector_norm(o.rhs)))
 
 
-def _rare_events_on(device: str, solA, solB) -> dict:
-    """AMS, TAMS and GPA between A and B (held in memory, moved to device)
-    with run/2dmoc/ams_params.xml cut by RARE_EVENT_CUTS."""
+def _ams_params() -> dict:
     from iemic_tpu_torch.config import read_xml
-    from iemic_tpu_torch.transient import transient_factory
-    from iemic_tpu_torch.utils import logging as log
+    return dict(read_xml(os.path.join(AMS_BUNDLE, "ams_params.xml")).items())
 
-    o = _rare_event_ocean(device)
-    solA, solB = solA.to(device), solB.to(device)
-    pars = dict(read_xml(AMS_PARAMS).items())
-    pars.update(RARE_EVENT_CUTS)
+
+def _rare_events_on(work: str, device: str, states: dict) -> dict:
+    """run_ams of AMS, TAMS and GPA in the bundle copy work on device,
+    with run/2dmoc/ams_params.xml cut by RARE_EVENT_CUTS."""
+    from iemic_tpu_torch.config import ParameterList, write_xml
+    from iemic_tpu_torch.main import run_ams
+
     out = {}
-    log.set_verbose(False)
-    try:
-        for method, cut in RARE_EVENT_METHODS.items():
-            o.set_state(solA)
-            tr = transient_factory(o, dict(pars, method=method, **cut),
-                                   sol1=solA, sol2=solB)
-            t0 = time.perf_counter()
-            status = tr.run()
-            if device == "cuda":
-                torch.cuda.synchronize()
-            out[method] = dict(status=status, its=tr.its,
-                               time_steps=tr.time_steps,
-                               probability=tr.get_probability(),
-                               mfpt=tr.get_mfpt(),
-                               seconds=time.perf_counter() - t0)
-    finally:
-        log.set_verbose(True)
+    for method, cut in RARE_EVENT_METHODS.items():
+        pars = dict(_ams_params(), **RARE_EVENT_CUTS, method=method, **cut)
+        write_xml(ParameterList("AMS", pars),
+                  os.path.join(work, "ams_params.xml"))
+        t0 = time.perf_counter()
+        status, _, tr = run_ams.run(work, device, states=states)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[method] = dict(status=status, its=tr.its,
+                           time_steps=tr.time_steps,
+                           probability=float(tr.get_probability()),
+                           mfpt=float(tr.get_mfpt()),
+                           seconds=time.perf_counter() - t0)
     return out
 
 
-def _rare_events(card_line: str) -> None:
-    """(d) The rare-event methods on the grid of the repo's only
-    ams_params.xml, on the card and, the same run, on the CPU."""
-    from iemic_tpu_torch.utils import logging as log
+def _trajectory(work: str, device: str, states: dict) -> list:
+    """RARE_EVENT_STEPS steps of the rare-event methods' stochastic theta
+    step (transient.factory.get_time_step of a StochasticThetaModel, as
+    transient_factory builds it) from A, with the bundle copy work's
+    solves on device: per step the state on the CPU, Newton updates, |F|,
+    MV and true relres of the last solve, seconds."""
+    from iemic_tpu_torch.transient.factory import get_time_step
+    from iemic_tpu_torch.transient.theta import StochasticThetaModel
+
+    o = _bundle_ocean(work, device)
+    pars = dict(_ams_params(), **RARE_EVENT_CUTS, **RARE_EVENT_STEP_CUTS)
+    model = StochasticThetaModel(o, pars)
+    step = get_time_step(model, pars)
+    x = o.from_flat(o._tensor(states["solution 1"]))
+    out = []
+    for _ in range(RARE_EVENT_STEPS):
+        t0 = time.perf_counter()
+        x = step(x, pars["time step"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out.append(dict(x=o.to_flat(x).cpu(), newton=step.newton.steps,
+                        converged=step.newton.converged,
+                        F=step.newton.norm_F, mv=o.solve_iters,
+                        relres=o.solve_relres,
+                        seconds=time.perf_counter() - t0))
+    return out
+
+
+def _rare_events(hopper, card_line: str) -> dict:
+    """(d) run_ams's three methods on run/2dmoc's grid, on the card and on
+    the CPU with direct solves; then the methods' step with the bundle's
+    BGS + Mixed solves on the card beside the direct solves on the CPU.
+    Returns the kernel launches of that card run by entry point."""
     cuts = dict(RARE_EVENT_CUTS, **{
+        "solver": RARE_EVENT_DIRECT["Preconditioning"],
         "Combined Forcing": RARE_EVENT_FORCING,
-        "solver": RARE_EVENT_SOLVER["Preconditioning"],
-        "B displacement": RARE_EVENT_DISPLACEMENT})
+        "B displacement": RARE_EVENT_DISPLACEMENT,
+        "states": "A and B held in memory"})
     for method, cut in RARE_EVENT_METHODS.items():
         cuts.update({f"{method} {k}": v for k, v in cut.items()})
+    cuts.update({f"BGS + Mixed steps {k}": v
+                 for k, v in RARE_EVENT_STEP_CUTS.items()})
     for key, val in cuts.items():
         print(f"transient rare events cut: {key} = {val}", flush=True)
-    log.set_verbose(False)
-    try:
-        solA, solB, fa = _rare_event_states(_rare_event_ocean("cuda"))
-    finally:
-        log.set_verbose(True)
-    print(f"transient rare events: run/2dmoc 4x32x16, A from "
-          f"{RARE_EVENT_NEWTON} Newton steps on the card, |F(A)| {fa:.3e}",
-          flush=True)
-    runs = {d: _rare_events_on(d, solA, solB) for d in ("cuda", "cpu")}
+    with tempfile.TemporaryDirectory() as tmp:
+        direct = [_ams_copy(tmp, d, RARE_EVENT_DIRECT)
+                  for d in ("cuda", "cpu")]
+        states, fa = _rare_event_states(direct[1])
+        print(f"transient rare events: run/2dmoc 4x32x16, A from "
+              f"{RARE_EVENT_NEWTON} Newton steps with direct solves on the "
+              f"cpu, |F(A)| {fa:.3e}", flush=True)
+        runs = {d: _rare_events_on(w, d, states)
+                for d, w in zip(("cuda", "cpu"), direct)}
+        bgs = _ams_copy(tmp, "bgs", None)
+        hopper.reset_launches()
+        card = _trajectory(bgs, "cuda", states)
+        launches, by_entry = hopper.LAUNCHES, dict(hopper.LAUNCHES_BY_ENTRY)
+        ref = _trajectory(direct[1], "cpu", states)
     for method in RARE_EVENT_METHODS:
         c, h = runs["cuda"][method], runs["cpu"][method]
-        print(f"transient {method}: probability {c['probability']!r} (cpu "
-              f"{h['probability']!r}), mfpt {c['mfpt']!r} (cpu "
-              f"{h['mfpt']!r}), its {c['its']} (cpu {h['its']}), time steps "
-              f"{c['time_steps']} (cpu {h['time_steps']}), {c['seconds']:.1f} "
-              f"s on the card, {h['seconds']:.1f} s on the cpu "
-              f"[{card_line}]", flush=True)
+        print(f"transient {method} (direct solves): probability "
+              f"{c['probability']!r} (cpu {h['probability']!r}), mfpt "
+              f"{c['mfpt']!r} (cpu {h['mfpt']!r}), its {c['its']} (cpu "
+              f"{h['its']}), time steps {c['time_steps']} (cpu "
+              f"{h['time_steps']}), {c['seconds']:.1f} s on the card, "
+              f"{h['seconds']:.1f} s on the cpu [{card_line}]", flush=True)
         same = (c["status"] == h["status"] == 0 and c["its"] == h["its"]
                 and c["time_steps"] == h["time_steps"] > 0
                 and all(np.isfinite(c[k]) and abs(c[k] - h[k])
@@ -1319,6 +1465,37 @@ def _rare_events(card_line: str) -> None:
             raise AssertionError(f"{method}: the card's run differs from "
                                  f"the cpu's, or is not finite: {c} "
                                  f"against {h}")
+    bundle_tol = _ams_params()["Newton tolerance"]
+    x0 = torch.as_tensor(states["solution 1"]).reshape(-1, 6)
+    for k, (c, h) in enumerate(zip(card, ref)):
+        moved = (h["x"].reshape(-1, 6) - x0).abs().amax(dim=0)
+        err = (c["x"] - h["x"]).reshape(-1, 6).abs().amax(dim=0)
+        print(f"transient rare-event step {k + 1} with BGS + Mixed on the "
+              f"card: Newton updates {c['newton']} (cpu, direct: "
+              f"{h['newton']}), "
+              f"{'converged' if c['converged'] else 'NOT converged'} at "
+              f"Newton tolerance {RARE_EVENT_STEP_CUTS['Newton tolerance']:g}"
+              f", the bundle's {bundle_tol:g} "
+              f"{'reached' if c['F'] < bundle_tol else 'NOT reached'}, |F| "
+              f"{c['F']:.3e} (cpu {h['F']:.3e}), last solve {c['mv']} MV to "
+              f"true relres {c['relres']:.2e}, {c['seconds']:.2f} s (cpu "
+              f"{h['seconds']:.2f} s); max |card - direct| per unknown "
+              "u v w p T S " + " ".join(f"{v:.2e}" for v in err.tolist())
+              + " against the direct step's max |x - A| "
+              + " ".join(f"{v:.2e}" for v in moved.tolist())
+              + f" [{card_line}]", flush=True)
+        tol = RARE_EVENT_STEP_CUTS["FGMRES tolerance"]
+        if not (c["converged"] and bool(torch.isfinite(c["x"]).all())
+                and c["relres"] < tol):
+            raise AssertionError(f"rare-event step {k + 1} on the card: "
+                                 f"converged {c['converged']}, last solve "
+                                 f"at {c['relres']:.3e} (tolerance {tol:g})")
+    print(f"transient rare-event steps launches {by_entry} [{card_line}]",
+          flush=True)
+    if by_entry[MAIN_ENTRY] <= 0 or by_entry[MAIN_ENTRY] != launches:
+        raise AssertionError(f"the rare-event steps did not go through "
+                             f"{MAIN_ENTRY} alone: {by_entry}")
+    return by_entry
 
 
 def _seasonal(card_line: str) -> None:
@@ -1365,14 +1542,14 @@ def _seasonal(card_line: str) -> None:
 def phase_transient(hopper, card_line: str) -> dict:
     """time_ocean's spin-up at full width, two stochastic steps of its
     state, the kernel on its last shifted Jacobian, the rare-event methods
-    on the 2DMOC grid and the seasonal forcing.  Returns the kernel
-    launches of the transient path, (a) and (b), by entry point."""
+    on the 2DMOC grid and their step with BGS + Mixed, and the seasonal
+    forcing.  Returns the kernel launches of the transient path, (a), (b)
+    and the BGS + Mixed steps of (d), by entry point."""
     t0 = time.perf_counter()
     ocean, stepper, spinup = _spinup(hopper, card_line)
     stochastic, model = _stochastic_steps(hopper, ocean, stepper, card_line)
-    by_entry = {k: spinup[k] + stochastic[k] for k in spinup}
-    print(f"transient phase launches (spin-up and stochastic steps) "
-          f"{by_entry}", flush=True)
+    print(f"transient spin-up launches {spinup}", flush=True)
+    print(f"transient stochastic steps launches {stochastic}", flush=True)
     print(f"transient (a)+(b) {time.perf_counter() - t0:.1f} s", flush=True)
     # (c) ocean.jac is J - B/(theta dt) of the last Newton iteration, whose
     # right-hand side was the theta residual and whose solution is ocean.sol
@@ -1380,10 +1557,12 @@ def phase_transient(hopper, card_line: str) -> dict:
         hopper, ocean, (("theta residual", model.rhs), ("dx", ocean.sol)),
         "transient J - B/(theta dt) of the last stochastic step,")
     t0 = time.perf_counter()
-    _rare_events(card_line)
+    rare = _rare_events(hopper, card_line)
     print(f"transient rare events {time.perf_counter() - t0:.1f} s",
           flush=True)
     _seasonal(card_line)
+    by_entry = {k: spinup[k] + stochastic[k] + rare[k] for k in spinup}
+    print(f"transient phase launches {by_entry}", flush=True)
     return by_entry
 
 
@@ -1417,7 +1596,7 @@ def main() -> int:
     phase_assembly()
     print(f"assembly phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    model = phase_effort(hopper, card_line)
+    model, jacobian_library_ms = phase_effort(hopper, card_line)
     print(f"effort phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_variants(hopper, model, card_line)
@@ -1443,7 +1622,7 @@ def main() -> int:
         source="iemic_tpu_torch/csrc/stencil_matvec.cu",
         replaces="iemic_tpu/ops/stencil_pallas.py:84",
         launches=main_launches[entry] + transient_launches[entry],
-        **rec[entry])
+        library_ms=jacobian_library_ms, **rec[entry])
         for entry in hopper.ENTRIES]}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

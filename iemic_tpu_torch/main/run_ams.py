@@ -19,9 +19,13 @@ import os
 import sys
 
 
-def run(workdir: str | None = None, device: str = "cuda"):
+def run(workdir: str | None = None, device: str = "cuda",
+        states: dict | None = None):
     """Run the rare-event method of the bundle in workdir on device;
-    returns (status, ocean, method) for callers that inspect the run."""
+    returns (status, ocean, method) for callers that inspect the run.
+    states maps "solution 1", "solution 2" and "solution 3" to flat
+    numpy states held in memory, which take the place of the files that
+    ams_params.xml names (on a machine without h5py)."""
     from .run_ocean import environment
     from ..config import read_xml
     from ..transient import transient_factory
@@ -32,16 +36,22 @@ def run(workdir: str | None = None, device: str = "cuda"):
         log.set_cdata_file("tdata.txt")
         pars = dict(read_xml("ams_params.xml").items())
 
-        def load(name):
-            state, _ = h5.load_state(name)
+        held = dict(states or {})
+
+        def load(key, default):
+            state = held.get(key)
             if state is None:
-                raise FileNotFoundError(name)
+                name = pars.get(key, default)
+                if key == "solution 3" and not (name and os.path.exists(name)):
+                    return None
+                state, _ = h5.load_state(name)
+                if state is None:
+                    raise FileNotFoundError(name)
             return ocean.from_flat(ocean._tensor(state))
 
-        sol1 = load(pars.get("solution 1", "sol1.h5"))
-        sol2 = load(pars.get("solution 2", "sol2.h5"))
-        f3 = pars.get("solution 3", "")
-        sol3 = load(f3) if f3 and os.path.exists(f3) else None
+        sol1 = load("solution 1", "sol1.h5")
+        sol2 = load("solution 2", "sol2.h5")
+        sol3 = load("solution 3", "")
 
         pars.setdefault("score function", "ocean")
         method = transient_factory(ocean, pars, sol1=sol1, sol2=sol2,

@@ -126,6 +126,28 @@ def test_run_ams_matches_jax(tmp_path):
     assert "Initialization: 3 / 3" in info
 
 
+def test_run_ams_takes_states_in_memory(tmp_path):
+    """run_ams with "solution 1/2" given as numpy states in memory, in a
+    bundle without the .h5 files, does what it does with the files."""
+    pytest.importorskip("h5py")
+    from iemic_tpu_torch.utils import hdf5
+    files = _bundle(tmp_path / "files", DIRECT, ams_params=AMS_PARS)
+    held = _bundle(tmp_path / "held", DIRECT, ams_params=AMS_PARS)
+    _ams_states(files)
+    states = {key: hdf5.load_state(os.path.join(files, name))[0]
+              for key, name in (("solution 1", "sol1.h5"),
+                                ("solution 2", "sol2.h5"))}
+    runs = [run_ams.run(files, "cpu")[2],
+            run_ams.run(held, "cpu", states=states)[2]]
+    assert not any(n.endswith(".h5") for n in os.listdir(held))
+    for m in runs:
+        assert m.time_steps > 0 and np.isfinite(m.get_probability())
+    assert [(m.its, m.time_steps, m.get_probability(), m.get_mfpt())
+            for m in runs[1:]] == [(runs[0].its, runs[0].time_steps,
+                                    runs[0].get_probability(),
+                                    runs[0].get_mfpt())]
+
+
 def test_port_writes_transient_states_jax_does_not(oceans, tmp_path,
                                                    monkeypatch):
     """ROADMAP queue 3: with "HDF5 output frequency" 1 the port's adaptive
