@@ -78,13 +78,37 @@ Phases, each printing its own line:
                 (the cuts are printed).  (e)
                 Seasonal forcing: F on the card against the CPU at three
                 times of the year.
+ 10. topo     — (a) on the masked global 96x38x12 grid with the salinity
+                integral condition: analyze_jacobian1/2 of the shipped mask
+                (problem P rows, S columns with a nonzero integral), then
+                get_land_mask(adjust_mask=True) on mask 1 with one water
+                column walled in, which the fix cycle must land, no
+                problem P row left; cells landed, fixes, seconds.  (b)
+                run_topo on a copy of run/ocean/global from its shipped
+                mask to mask 1 (a seamount, written by the port's
+                write_mask_file), from rest, cut to TOPO_STEPS steps in
+                Delta (see _topo_copy): one line per Newton iteration
+                (Delta, |F_h|, |F_B|, MV and true relres per solve), wall
+                and launches per Newton iteration; status 0, Delta rising,
+                every blended solve below its tolerance, cdata finite,
+                every launch through the wide f32 kernel
+ 11. lyapunov — run_lyapunov on a copy of run/lyapunov (4x32x16) with
+                direct solves, cut to one continuation step (see
+                _lyapunov_copy): trace finite and positive, spectrum
+                non-negative, rails' residual and the seconds of the dense
+                Jacobian, the Schur step and rails; the same run of a copy
+                cut to 4x16x8 and three rails iterations on the card
+                against the CPU (trace and spectrum to 1e-6); one solve of
+                the bundle's BGS + Mixed at the point, capped, through the
+                f32 kernel
 
 The line before the last is the kernels' JSON record: ms, plain_ms and
 bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
 on the effort phase's periodic 96x38x12 Jacobian, the main path's own
 operator, whose zero coefficients CSR leaves out (the effort line gives
-every entry point's time on it beside cuSPARSE); launches of the main
-and transient phases.  The last line is {"ok": true, "device": {...}}.
+every entry point's time on it beside cuSPARSE); launches of the main,
+transient, topo and lyapunov phases.  The last line is {"ok": true,
+"device": {...}}.
 Any failed check raises (exit code 1), and a run that outlasts
 WATCHDOG_S seconds prints its stack and exits with code 1.
 """
@@ -92,6 +116,7 @@ WATCHDOG_S seconds prints its stack and exits with code 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import os
@@ -269,6 +294,29 @@ RARE_EVENT_STEP_CUTS = {"FGMRES tolerance": SOLVE_TOL,
                         "Newton tolerance": 1e-2}
 # times of the year at which the seasonal forcing is held card to CPU
 SEASON_TIMES = (0.1, 0.45, 0.8)
+# the topo phase: run_topo on a copy of run/ocean/global, cut to
+# TOPO_STEPS continuation steps in "Delta" of TOPO_NEWTON_ITERS Newton
+# iteration each, at FGMRES tolerance SOLVE_TOL (see _topo_copy); the
+# mask analysis solves at the effort phase's EFFORT_TOL
+TOPO_STEPS = 2
+TOPO_NEWTON_ITERS = 1
+TOPO_FORCING = 0.1
+# the lyapunov phase: run_lyapunov on a copy of run/lyapunov (4x32x16),
+# cut to LYAPUNOV_STEPS continuation steps with direct solves (see
+# _lyapunov_copy).  The card is held against the CPU on the same run of a
+# copy cut to LYAPUNOV_CHECK_GRID (m, l): on the CPU the dense Jacobian
+# and the minimal-norm Schur step of the bundle's grid take 94 s and 64 s
+# (measured on an 8-core host), past the phase's time.  That run's rails
+# stops after LYAPUNOV_CHECK_ITERS iterations, and the point's trace and
+# spectrum are held to LYAPUNOV_CHECK_TOL: each unconverged rails
+# iteration picks the dominant eigenvectors of a Lanczos estimate of the
+# residual, and that choice turns rounding differences into 1e-4 of the
+# trace after six iterations (tests/test_torch_lyapunov.py)
+LYAPUNOV_BUNDLE = os.path.join(REPO, "run", "lyapunov")
+LYAPUNOV_STEPS = 1
+LYAPUNOV_CHECK_GRID = (16, 8)
+LYAPUNOV_CHECK_ITERS = 3
+LYAPUNOV_CHECK_TOL = 1e-6
 
 
 def card() -> str:
@@ -1566,6 +1614,479 @@ def phase_transient(hopper, card_line: str) -> dict:
     return by_entry
 
 
+@contextlib.contextmanager
+def _no_gmres_ir_tail():
+    """Ocean.solve with its GMRES-IR tail given no outer iteration: a
+    Mixed solve whose f32 inner solves stall short of the tolerance
+    returns its best iterate at once, where the tail would run up to 120
+    full inner solves (hours at 96x38x12, ROADMAP queue 3).  A solve that
+    meets its tolerance never enters the tail, so this changes no solve
+    that a phase's checks accept."""
+    from iemic_tpu_torch.models.ocean import Ocean
+    tail = Ocean._gmres_ir_host
+    Ocean._gmres_ir_host = lambda self, *a: tail(self, *a, maxouter=0)
+    try:
+        yield
+    finally:
+        Ocean._gmres_ir_host = tail
+
+
+def _global_raw_mask() -> np.ndarray:
+    """The raw (l, m, n) land mask of run/ocean/global."""
+    from types import SimpleNamespace
+    from iemic_tpu_torch.models.ocean import landmask as lm
+    l, m, n = (GLOBAL_THCM[f"Global Grid-Size {c}"] for c in "lmn")
+    landm = lm.read_mask_file(
+        os.path.join(REPO, "data", "mkmask", GLOBAL_THCM["Land Mask"]),
+        SimpleNamespace(l=l, m=m, n=n))
+    return landm[1:l + 1, 1:m + 1, 1:n + 1].copy()
+
+
+def _open_ocean(raw: np.ndarray, size: int, avoid=None) -> tuple:
+    """(j, i) of the first size x size block of columns that are water at
+    every depth, searched from the middle of the grid outward, apart from
+    the block avoid = (j, i, size)."""
+    _, m, n = raw.shape
+    deep = (raw == 0).all(axis=0)
+    for j in sorted(range(m - size + 1), key=lambda j: abs(j - m // 2)):
+        for i in sorted(range(n - size + 1), key=lambda i: abs(i - n // 2)):
+            if avoid is not None:
+                aj, ai, asz = avoid
+                if aj - size < j < aj + asz and ai - size < i < ai + asz:
+                    continue
+            if deep[j:j + size, i:i + size].all():
+                return j, i
+    raise AssertionError(f"no open {size}x{size} block of ocean")
+
+
+def _topo_mask1():
+    """Mask 1, derived from mask 0, the shipped mask of run/ocean/global:
+    the bottom two levels of a 2 x 2 block of columns landed in the middle
+    of an open basin, a seamount (as tests/test_topo.py makes one).
+    Returns (mask 1, the 4 x 4 block around the seamount as (j, i, 4))."""
+    raw = _global_raw_mask()
+    j, i = _open_ocean(raw, 4)
+    mask1 = raw.copy()
+    mask1[0:2, j + 1:j + 3, i + 1:i + 3] = 1
+    return mask1, (j, i, 4)
+
+
+def _topo_analysis(hopper, card_line: str, mask1, seamount, tmp: str):
+    """(a) The mask analysis at full width: analyze_jacobian on the
+    shipped mask, then get_land_mask(adjust_mask=True) on mask 1 with one
+    water column walled in by land at every depth, which the fix cycle
+    must land.  The model takes the salinity integral condition
+    ("Restoring Salinity Profile" 0, its row at the seamount's ocean
+    column), under which the S column analysis applies: under the
+    bundle's restoring it flags every surface ocean column (3,066 here;
+    the port's analysis then flags none, ROADMAP queue 3)."""
+    from iemic_tpu_torch.models.ocean import Ocean, analysis
+    from iemic_tpu_torch.post.masks import write_mask_file
+
+    thcm = dict(GLOBAL_THCM, **{
+        "Restoring Salinity Profile": 0,
+        "Integral row coordinate i": seamount[1] + 1,
+        "Integral row coordinate j": seamount[0] + 1})
+    o = Ocean({"THCM": thcm},
+              solver_params={"Preconditioning": "BGS", "Precision": "Mixed",
+                             "FGMRES tolerance": EFFORT_TOL,
+                             "FGMRES iterations": 200},
+              data_dir=os.path.join(REPO, "data"), device="cuda")
+    t0 = time.perf_counter()
+    with _no_gmres_ir_tail():
+        flags = [(f == 2).sum() for f in (analysis.analyze_jacobian1(o),
+                                          analysis.analyze_jacobian2(o))]
+    torch.cuda.synchronize()
+    print(f"topo analysis: on the shipped mask (salinity integral "
+          f"condition) {flags[0]} problem P rows and {flags[1]} S columns "
+          f"with a nonzero integral, in {time.perf_counter() - t0:.3f} s "
+          f"(the S analysis's test state is one Newton step at Combined "
+          f"Forcing 1e-8, its solve asked FGMRES tolerance {EFFORT_TOL:g}, "
+          f"where the bundle asks 1e-4, with no GMRES-IR tail: MV "
+          f"{o.solve_iters}, true relres {o.solve_relres:.2e}) "
+          f"[{card_line}]", flush=True)
+    if not o.solve_relres < 1.0:
+        raise AssertionError("the S analysis's solve made no progress: "
+                             f"{o.solve_relres:.2e}")
+
+    j, i = _open_ocean(mask1, 3, avoid=seamount)
+    walled = mask1.copy()
+    walled[:, j:j + 3, i:i + 3] = 1
+    walled[:, j + 1, i + 1] = 0
+    path = os.path.join(tmp, "mask_1_walled_column.txt")
+    write_mask_file(path, walled)
+    swaps = [0]
+    set_land_mask = o.set_land_mask
+
+    def counted(*args, **kw):
+        swaps[0] += 1
+        return set_land_mask(*args, **kw)
+
+    o.set_land_mask = counted
+    t0 = time.perf_counter()
+    with _no_gmres_ir_tail():
+        fixed = o.get_land_mask(path, adjust_mask=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    interior = fixed[1:-1, 1:-1, 1:-1]
+    landed = int(((interior != 0) & (walled == 0)).sum())
+    problems = int((analysis.analyze_jacobian1(o) == 2).sum())
+    print(f"topo analysis: mask 1 with the water column (j, i) = "
+          f"({j + 1}, {i + 1}) walled in: the fix cycle landed {landed} "
+          f"cells in {swaps[0] - 1} fixes ({swaps[0]} mask swaps) in "
+          f"{wall:.3f} s; {problems} problem P rows after it [{card_line}]",
+          flush=True)
+    if not ((interior[:, j + 1, i + 1] != 0).all() and problems == 0
+            and landed >= walled.shape[0]):
+        raise AssertionError("the fix cycle did not land the walled-in "
+                             f"column: landed {landed}, {problems} problem "
+                             "P rows left")
+
+
+def _topo_copy(tmp: str, mask1) -> str:
+    """Copy run/ocean/global into tmp for run_topo from its shipped mask
+    (mask 0) to mask 1, written with the port's write_mask_file.
+
+    What is changed, and why.  The leg starts from rest, x_A, which must
+    solve the blended system at Delta 0.  With the bundle's rotation the
+    u and v rows are relaxation rows there and the blended Jacobian is
+    singular (the pressure is held only up to a constant per water
+    column, tests/test_torch_topo.py), so the copy sets Rossby-Number 0,
+    where those rows keep their physics; and Wind Forcing 0, since the
+    wind drives those rows and rest would not solve them.  Combined
+    Forcing TOPO_FORCING (the effort phase's), since at 0 rest is the
+    steady state under every mask and the leg does nothing.  The run is
+    cut: FGMRES tolerance SOLVE_TOL, as in the main phase, and
+    TOPO_STEPS steps in Delta of the bundle's step size, far short of
+    Delta 1, of TOPO_NEWTON_ITERS Newton iteration each, unconverged
+    points kept, backtracking off, and the step held at the bundle's
+    initial 0.05.  A second Newton update stalls: its solve of
+    J_h z = -F_h ends at 0.49 and then 1.0 (on the H100), where
+    |F_h| (2.6e-2) is what is left of facB |F_B| (|F_B| 401) against
+    M (x - x_A), below the f32 operator's rounding.  After one-iteration
+    steps the step adaptation doubles the step, and the secant predictor
+    then lands at |F_h| 309, whose solves take 200-360 MV to 1e-2 to
+    0.13 (on the H100; PERF.md).  Absolute data path, no checkpoint
+    files."""
+    from iemic_tpu_torch.config import ParameterList, read_xml, write_xml
+    from iemic_tpu_torch.post.masks import write_mask_file
+    work = os.path.join(tmp, "topo")
+    shutil.copytree(BUNDLE, work)
+    write_mask_file(os.path.join(work, "mask_1.txt"), mask1)
+    op = read_xml(os.path.join(work, "ocean_params.xml"))
+    op.set("Data directory", os.path.join(REPO, "data"))
+    op.set("Save state", False)
+    sp = op.sublist("THCM").sublist("Starting Parameters")
+    sp.set("Combined Forcing", TOPO_FORCING)
+    sp.set("Rossby-Number", 0.0)
+    sp.set("Wind Forcing", 0.0)
+    write_xml(op, os.path.join(work, "ocean_params.xml"))
+    write_xml(ParameterList("Topo parameters", {
+        "Number of mask files": 2,
+        "Mask file 0": GLOBAL_THCM["Land Mask"],
+        "Mask file 1": "mask_1.txt"}),
+        os.path.join(work, "topo_params.xml"))
+    cp = read_xml(os.path.join(work, "continuation_params.xml"))
+    cp.set("continuation parameter", "Delta")
+    cp.set("maximum number of steps", TOPO_STEPS)
+    cp.set("maximum Newton iterations", TOPO_NEWTON_ITERS)
+    cp.set("maximum step size", cp.get("initial step size"))
+    cp.set("reject failed iteration", False)
+    cp.set("enable backtracking", False)
+    write_xml(cp, os.path.join(work, "continuation_params.xml"))
+    sp = read_xml(os.path.join(work, "solver_params.xml"))
+    sp.set("FGMRES tolerance", SOLVE_TOL)
+    write_xml(sp, os.path.join(work, "solver_params.xml"))
+    return work
+
+
+def _newton_records(info: str) -> tuple[list, list]:
+    """From a run's info_0.txt: the solves before the first predictor (the
+    initial tangent), and per Newton iteration its parameter, |R|, the
+    last Topo line's |F_B| and the solves since the previous one."""
+    solves, records, topo_fb = [], [], None
+    head = None
+    for line in info.splitlines():
+        if head is None and "predictor:" in line:
+            head, solves = solves, []
+        if (mt := re.search(r"FGMRES solve: (\d+) iters, relres=(\S+)",
+                            line)):
+            solves.append((int(mt.group(1)), float(mt.group(2))))
+        elif (mt := re.search(r"Topo: Delta=\S+ \|F_h\|=\S+ \|F_B\|=(\S+)",
+                              line)):
+            topo_fb = float(mt.group(1))
+        elif (mt := re.search(r"Newton iter \d+: \|R\|=(\S+) .* l=(\S+)",
+                              line)):
+            records.append(dict(par=float(mt.group(2)),
+                                F=float(mt.group(1)), FB=topo_fb,
+                                solves=solves))
+            solves = []
+    return (head or []), records
+
+
+def phase_topo(hopper, card_line: str) -> dict:
+    """(a) The mask analysis and fix cycle at full width; (b) run_topo on
+    the masked global 96x38x12 grid from its shipped mask to a seamount,
+    on the card.  Returns the kernel launches of (b) by entry point."""
+    from iemic_tpu_torch.main import run_topo
+
+    mask1, seamount = _topo_mask1()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _topo_analysis(hopper, card_line, mask1, seamount, tmp)
+        print(f"topo (a) {time.perf_counter() - t0:.1f} s", flush=True)
+        work = _topo_copy(tmp, mask1)
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        with _no_gmres_ir_tail():
+            status, topo, _ = run_topo.run(work, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by_entry = hopper.LAUNCHES, dict(hopper.LAUNCHES_BY_ENTRY)
+        info = open(os.path.join(work, "info_0.txt")).read()
+        cdata = open(os.path.join(work, "cdata.txt")).read()
+        prof = _profile(os.path.join(work, "profile_output"))
+    j, i, _ = seamount
+    print(f"topo leg (run_topo, masked global 96x38x12, Combined Forcing "
+          f"{TOPO_FORCING:g}, Rossby-Number 0, Wind Forcing 0, mask "
+          f"{GLOBAL_THCM['Land Mask']} -> the bottom two levels of columns "
+          f"(j, i) = ({j + 2}..{j + 3}, {i + 2}..{i + 3}) landed) "
+          f"status={status} wall={wall:.1f} s, kernel launches={launches} "
+          f"{by_entry} [{card_line}]", flush=True)
+    head, records = _newton_records(info)
+    print("topo initial tangent solves: MV "
+          + " ".join(str(mv) for mv, _ in head) + " | true relres "
+          + " ".join(f"{r:.2e}" for _, r in head), flush=True)
+    for k, rec in enumerate(records):
+        print(f"topo Newton {k + 1}: Delta {rec['par']:.6e} |F_h| "
+              f"{rec['F']:.3e} |F_B| {rec['FB']:.3e} | MV "
+              + " ".join(str(mv) for mv, _ in rec["solves"])
+              + " | true relres "
+              + " ".join(f"{r:.2e}" for _, r in rec["solves"]), flush=True)
+    for line in cdata.strip().splitlines():
+        print("topo cdata " + line, flush=True)
+    nits = prof.get("Continuation: Newton iterations...", (0, 0))[0]
+    newton_s = prof.get("Continuation: Newton", (0.0, 0))[0]
+    for key in ("Ocean: compute rhs", "Ocean: compute jacobian",
+                "Ocean: build preconditioner", "Ocean: solve"):
+        if key in prof:
+            print(f"topo timer {key}: {prof[key][0]:.3f} s over "
+                  f"{int(prof[key][1])} calls [{card_line}]", flush=True)
+    if nits:
+        print(f"topo wall per Newton iteration {newton_s / nits:.3f} s "
+              f"({int(nits)} iterations, {launches / nits:.1f} launches "
+              f"each) [{card_line}]", flush=True)
+    rows = [[float(v) for v in ln.split()] for ln in cdata.splitlines()
+            if ln.strip() and not ln.startswith("#")]
+    deltas = [r[0] for r in rows]
+    print(f"topo: the leg is cut at Delta {deltas[-1] if deltas else 0:.6e}"
+          f" of 1 ({TOPO_STEPS} steps of {TOPO_NEWTON_ITERS} Newton "
+          f"iteration, FGMRES tolerance {SOLVE_TOL:g})", flush=True)
+
+    if status != 0:
+        raise AssertionError(f"run_topo returned {status}")
+    if len(rows) != TOPO_STEPS or not all(
+            b > a for a, b in zip([0.0] + deltas, deltas)):
+        raise AssertionError(f"Delta did not rise step by step: {deltas}")
+    if not all(np.isfinite(v) for r in rows for v in r):
+        raise AssertionError(f"topo cdata not finite: {rows}")
+    solves = head + [s for rec in records for s in rec["solves"]]
+    if not solves or not all(np.isfinite(r) and r < SOLVE_TOL
+                             for _, r in solves):
+        raise AssertionError("a blended solve missed its tolerance "
+                             f"{SOLVE_TOL:g}: {solves}")
+    if by_entry[MAIN_ENTRY] <= 0 or by_entry[MAIN_ENTRY] != launches:
+        raise AssertionError(f"the leg did not go through {MAIN_ENTRY} "
+                             f"alone: {by_entry}")
+    return by_entry
+
+
+def _lyapunov_copy(tmp: str, name: str = "lyapunov", grid=None,
+                   rails_iters: int | None = None) -> str:
+    """Copy run/lyapunov into tmp/name for run_lyapunov, cut to
+    LYAPUNOV_STEPS continuation steps, with direct solves (Amesos, host
+    LU) in place of the bundle's BGS + Mixed, no checkpoint files (no
+    h5py on the card's machine); grid (m, l) and rails_iters cut it
+    further for the comparison with the CPU.
+
+    Why direct solves.  With the bundle's BGS + Mixed the continuation's
+    Newton solves fall into the GMRES-IR tail, the f32 inner solve
+    stalling short of the tolerance: at FGMRES tolerance 1e-4 the next
+    inner solve after the tangent's (68 MV to 3.7e-4) stalls at 0.996; at
+    5e-2 with the bundle's step 0.1 Newton's fourth solve takes 200 MV to
+    1.2e-2 and the fifth stalls; at 5e-2 with step 0.01 the first
+    Newton update's second solve stalls (on the H100, PERF.md; the
+    sweeps are the JAX package's, ROADMAP queue 3).  So the continuation
+    takes direct solves, as the rare-event phase does, and the bundle's
+    BGS + Mixed runs one capped solve at the point (phase_lyapunov)."""
+    from iemic_tpu_torch.config import ParameterList, read_xml, write_xml
+    work = os.path.join(tmp, name)
+    shutil.copytree(LYAPUNOV_BUNDLE, work)
+    op = read_xml(os.path.join(work, "ocean_params.xml"))
+    op.set("Save state", False)
+    if grid is not None:
+        op.sublist("THCM").set("Global Grid-Size m", grid[0])
+        op.sublist("THCM").set("Global Grid-Size l", grid[1])
+    write_xml(op, os.path.join(work, "ocean_params.xml"))
+    cp = read_xml(os.path.join(work, "continuation_params.xml"))
+    cp.set("maximum number of steps", LYAPUNOV_STEPS)
+    write_xml(cp, os.path.join(work, "continuation_params.xml"))
+    if rails_iters is not None:
+        lp = read_xml(os.path.join(work, "lyapunov_params.xml"))
+        lp.set("Maximum Iterations", rails_iters)
+        write_xml(lp, os.path.join(work, "lyapunov_params.xml"))
+    write_xml(ParameterList("Solver parameters", dict(RARE_EVENT_DIRECT)),
+              os.path.join(work, "solver_params.xml"))
+    return work
+
+
+def _lyapunov_bgs_solve(hopper, x, par, card_line: str) -> dict:
+    """At the point's state, one solve of the bundle's BGS + Mixed on the
+    card of the continuation's tangent system J y = -dF/dpar (Combined
+    Forcing), held to VARIANT_CAP inner iterations with no GMRES-IR tail:
+    MV, true relres, launches by entry point."""
+    from iemic_tpu_torch.config import read_xml
+    from iemic_tpu_torch.main.run_ocean import read_solver_params
+    from iemic_tpu_torch.models.ocean import Ocean
+    cwd = os.getcwd()
+    os.chdir(LYAPUNOV_BUNDLE)
+    try:
+        o = Ocean(read_xml("ocean_params.xml"),
+                  solver_params=read_solver_params(), device="cuda")
+    finally:
+        os.chdir(cwd)
+    tol = o.solver_params.get("FGMRES tolerance")
+    o.set_state(x.cuda())
+    o.par = par.cuda()
+    cf = o.get_par("Combined Forcing")
+    o.compute_rhs()
+    F = o.rhs
+    o.set_par("Combined Forcing", cf + 1e-6)
+    o.compute_rhs()
+    o.set_par("Combined Forcing", cf)
+    b = -(o.rhs - F) / 1e-6
+    o.compute_jacobian()
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    y = _capped_solve(o, b, VARIANT_CAP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_entry = dict(hopper.LAUNCHES_BY_ENTRY)
+    true = _true_relres(o, y, b)
+    print(f"lyapunov BGS + Mixed at the point (the bundle's solver, "
+          f"tangent system, at most {VARIANT_CAP} inner iterations, no "
+          f"GMRES-IR tail): MV {o.solve_iters}, true relres {true:.3e} "
+          f"({'within' if true < tol else 'short of'} the bundle's "
+          f"{tol:g}), {wall:.3f} s, launches {by_entry} [{card_line}]",
+          flush=True)
+    entries = {k for k, v in by_entry.items() if v}
+    if not (entries and entries <= {MAIN_ENTRY, "stencil_matvec_f32"}
+            and bool(torch.isfinite(y).all()) and true < 1.0):
+        raise AssertionError(f"lyapunov BGS + Mixed solve: {by_entry}, "
+                             f"true relres {true:.3e}")
+    return by_entry
+
+
+def phase_lyapunov(hopper, card_line: str) -> dict:
+    """run_lyapunov on its bundle's own grid on the card (direct solves);
+    the same run of a smaller cut of the bundle on the card against the
+    CPU; and the bundle's BGS + Mixed solve at the first run's point.
+    Returns the kernel launches of that solve by entry point."""
+    from iemic_tpu_torch.config import read_xml
+    from iemic_tpu_torch.main import run_lyapunov
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = _lyapunov_copy(tmp)
+        tol = read_xml(os.path.join(work, "solver_params.xml")).get(
+            "FGMRES tolerance")
+        rtol = read_xml(os.path.join(work, "lyapunov_params.xml")).get(
+            "Tolerance")
+        t0 = time.perf_counter()
+        status, lyap, _ = run_lyapunov.run(work, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        info = open(os.path.join(work, "info_0.txt")).read()
+        data = open(os.path.join(work, "lyapunov_data.txt")).read()
+        print(f"lyapunov (run_lyapunov, run/lyapunov 4x32x16, "
+              f"{LYAPUNOV_STEPS} continuation step, direct solves) "
+              f"status={status} wall={wall:.1f} s [{card_line}]",
+              flush=True)
+        solves = [(int(a), float(b)) for a, b in re.findall(
+            r"FGMRES solve: (\d+) iters, relres=(\S+)", info)]
+        newton = re.findall(r"Newton iter \d+: \|R\|=(\S+)", info)
+        print("lyapunov Newton |F| " + " ".join(newton) + " | relres "
+              + " ".join(f"{r:.2e}" for _, r in solves), flush=True)
+        for line in data.strip().splitlines():
+            print("lyapunov data " + line, flush=True)
+        for r in lyap.results:
+            spec = r["spectrum"]
+            print(f"lyapunov point par {r['par']:.6e}: trace "
+                  f"{r['trace']:.6e}, rails {r['iterations']} iterations, "
+                  f"residual estimate {r['resnorm']:.3e}, "
+                  f"{'converged' if r['converged'] else 'NOT converged'} "
+                  f"at the bundle's tolerance {rtol:g} of |B B^T|, "
+                  f"spectrum {spec[0]:.4e} {spec[1]:.4e} "
+                  f"{spec[2]:.4e} ... min {spec.min():.3e}; seconds: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              r["seconds"].items()) + f" [{card_line}]",
+                  flush=True)
+
+        if status != 0:
+            raise AssertionError(f"run_lyapunov returned {status}")
+        if not solves or not all(np.isfinite(r) and r < tol
+                                 for _, r in solves):
+            raise AssertionError(f"a solve missed its tolerance {tol:g}: "
+                                 f"{solves}")
+        if len(lyap.results) != LYAPUNOV_STEPS:
+            raise AssertionError(f"{len(lyap.results)} covariance solves")
+        for r in lyap.results:
+            spec = r["spectrum"]
+            if not (np.isfinite(r["trace"]) and r["trace"] > 0
+                    and np.all(np.isfinite(spec))
+                    and spec.min() >= -1e-8 * max(1.0, abs(spec[0]))):
+                raise AssertionError(f"covariance at par {r['par']}: trace "
+                                     f"{r['trace']}, spectrum {spec}")
+
+        x, par = lyap.get_state().cpu(), lyap.par.cpu()
+
+        # card against CPU: the same run of the copy cut to
+        # LYAPUNOV_CHECK_GRID and LYAPUNOV_CHECK_ITERS rails iterations
+        runs = {}
+        for device in ("cuda", "cpu"):
+            small = _lyapunov_copy(tmp, "check_" + device,
+                                   LYAPUNOV_CHECK_GRID, LYAPUNOV_CHECK_ITERS)
+            t0 = time.perf_counter()
+            st, model, _ = run_lyapunov.run(small, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            runs[device] = (st, model.results[0], time.perf_counter() - t0)
+    (st_card, got, t_card), (st_cpu, want, t_cpu) = (runs["cuda"],
+                                                     runs["cpu"])
+    gap_trace = abs(got["trace"] - want["trace"]) / abs(want["trace"])
+    gap_spec = (np.abs(got["spectrum"] - want["spectrum"]).max()
+                / abs(want["spectrum"][0]))
+    m, l = LYAPUNOV_CHECK_GRID
+    print(f"lyapunov card against CPU: run_lyapunov on the copy cut to "
+          f"4x{m}x{l}, {LYAPUNOV_CHECK_ITERS} rails iterations, point par "
+          f"{got['par']:.10e} against {want['par']:.10e}: trace "
+          f"{got['trace']:.10e} against {want['trace']:.10e} (gap "
+          f"{gap_trace:.2e}), spectrum gap {gap_spec:.2e} of its largest "
+          f"(limit {LYAPUNOV_CHECK_TOL:g}); card {t_card:.1f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in got["seconds"].items())
+          + f"), CPU {t_cpu:.1f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in want["seconds"].items())
+          + f") [{card_line}]", flush=True)
+    if not (st_card == 0 and st_cpu == 0
+            and abs(got["par"] - want["par"]) <= 1e-10 * abs(want["par"])
+            and gap_trace <= LYAPUNOV_CHECK_TOL
+            and gap_spec <= LYAPUNOV_CHECK_TOL
+            and got["iterations"] == want["iterations"]):
+        raise AssertionError("the card's covariance disagrees with the "
+                             f"CPU's: trace gap {gap_trace:.2e}, spectrum "
+                             f"gap {gap_spec:.2e}")
+    return _lyapunov_bgs_solve(hopper, x, par, card_line)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -1616,12 +2137,22 @@ def main() -> int:
     t0 = time.perf_counter()
     transient_launches = phase_transient(hopper, card_line)
     print(f"transient phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    topo_launches = phase_topo(hopper, card_line)
+    print(f"topo phase {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"topo phase launches {topo_launches}", flush=True)
+    t0 = time.perf_counter()
+    lyapunov_launches = phase_lyapunov(hopper, card_line)
+    print(f"lyapunov phase {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"lyapunov phase launches {lyapunov_launches}", flush=True)
 
     print(json.dumps({"kernels": [dict(
         name=entry, route="cuda",
         source="iemic_tpu_torch/csrc/stencil_matvec.cu",
         replaces="iemic_tpu/ops/stencil_pallas.py:84",
-        launches=main_launches[entry] + transient_launches[entry],
+        launches=sum(phase[entry] for phase in (
+            main_launches, transient_launches, topo_launches,
+            lyapunov_launches)),
         library_ms=jacobian_library_ms, **rec[entry])
         for entry in hopper.ENTRIES]}))
     faulthandler.cancel_dump_traceback_later()

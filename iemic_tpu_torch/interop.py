@@ -68,3 +68,20 @@ def install_monthly_forcing(ocean, **monthly) -> None:
     for k, v in monthly.items():
         setattr(ocean.monthly_forcing, k, np.array(v, dtype=np.float64))
 
+
+
+def install_topo_leg(topo, *, masks, k, delta, state_A, vecM) -> None:
+    """A JAX Topo leg into the port's Topo: the raw (l, m, n) masks, the
+    leg index k (A = masks[k], B = masks[k+1]), Delta, the mask-A state
+    x_A and the mass diagonal of mask B (field layout), with the row
+    scaling that follows from it.  The port's ocean must hold mask B
+    already (install_land_mask with the JAX ocean's padded mask)."""
+    g = topo.model.grid
+    dev = topo.model.device
+    topo.set_masks([np.asarray(mk) for mk in masks])
+    topo.set_mask_index(int(k))
+    topo.delta = float(delta)
+    topo.state_A = state(state_A, g.l, g.m, g.n, dev)
+    topo.vecM = state(vecM, g.l, g.m, g.n, dev)
+    topo._scale = (topo.vecM.abs() < 1e-12).to(F64)
+    topo.norm_fB = np.inf

@@ -8,8 +8,7 @@ matrix-free Jacobian), forcing and the linear solve, all as tensors on
 one ``device`` in float64; the mixed-precision solve runs its inner
 Krylov operator in float32 through the Hopper stencil kernel.
 
-Not ported yet: land-mask swapping (``Max mask fixes``, ROADMAP queue 1
-item 11) and the coupled flux components (item 12).
+Not ported yet: the coupled flux components (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -465,6 +464,9 @@ class Ocean:
         self._prec_for = None
         self._prec_factors = None
         self._prec_factors32 = None
+        self._rowscale = None
+        self._jac_s = None
+        self._jacK32 = None
 
         from ...solvers import factory as sfactory
         prec_params = dict(sp.sublist("Preconditioner").items()) \
@@ -616,20 +618,23 @@ class Ocean:
                              tol=tol, maxiter=self._maxiter)
         return _proj(x, nullq).reshape(shape), res.iters, res.relres
 
-    def _get_prec_factors(self):
-        """Build (or reuse) the preconditioner factors for the current
-        Jacobian, with THCM row scaling (Ocean::scaleProblem)."""
-        if self._prec_for is not self.jac:
+    def _get_prec_factors(self, An=None):
+        """Build (or reuse) the preconditioner factors for the stencil
+        tensor An (the current Jacobian by default), with THCM row scaling
+        (Ocean::scaleProblem).  The row-scaled tensor, its row scale and
+        its prepared f32 operator are what the next solve applies."""
+        An = self.jac if An is None else An
+        if self._prec_for is not An:
             with log.timer("Ocean: build preconditioner"):
                 if self.cfg.scaling == "THCM":
                     from . import scaling as _scal
-                    R, _ = _scal.row_col_scaling(self.jac, self.landm)
+                    R, _ = _scal.row_col_scaling(An, self.landm)
                     self._rowscale = R
-                    self._jac_s = self.jac * R[None, :, None]
+                    self._jac_s = An * R[None, :, None]
                     self._rint = float(R[self.rowintcon])
                 else:
                     self._rowscale = None
-                    self._jac_s = self.jac
+                    self._jac_s = An
                     self._rint = 1.0
                 self._prec_factors = self._prec_build(self._jac_s)
                 if self._precision == "Mixed" and not self._prec_host_only:
@@ -640,7 +645,7 @@ class Ocean:
                 else:
                     self._prec_factors32 = self._prec_factors
                     self._jacK32 = None
-                self._prec_for = self.jac
+                self._prec_for = An
         return self._prec_factors, self._prec_factors32
 
     def _get_deflator(self):
@@ -665,6 +670,95 @@ class Ocean:
         q, _ = np.linalg.qr(np.stack(valid, axis=1))
         self._deflator = self._tensor(q)
         return self._deflator
+
+    # ------------------------------------------------------------------
+    # Land mask swapping (reference Ocean::setLandMask/getLandMask,
+    # Ocean.C:490-788 — used by the topography homotopy)
+    # ------------------------------------------------------------------
+    def get_land_mask(self, filename: str,
+                      adjust_mask: bool = False) -> np.ndarray:
+        """Load a land mask file by name, searched like the constructor
+        does (CWD, then <data_dir>/mkmask), as the padded (l+2, m+2, n+2)
+        array with the file's ghost cells.  With
+        adjust_mask=True the mask is installed and run through the
+        analyze-Jacobian mask-fix cycle first (Ocean::getLandMask
+        adjustMask path, Ocean.C:490-570), returning the fixed padded
+        mask."""
+        path = filename if os.path.exists(filename) else \
+            os.path.join(self._data_dir or ".", "mkmask", filename)
+        raw = lm.read_mask_file(path, self.grid)
+        if adjust_mask:
+            from . import analysis
+            self.set_land_mask(raw, file_ghosts=True)
+            self.compute_jacobian()
+            analysis.mask_fix_cycle(self)
+            return np.asarray(self.landm)
+        return raw
+
+    def analyze_jacobian(self) -> int:
+        """Singular-row / column-integral analysis of the current
+        Jacobian (Ocean::analyzeJacobian1/2, Ocean.C:273-423); returns
+        the number of flagged rows."""
+        from . import analysis
+        f1 = analysis.analyze_jacobian1(self)
+        f2 = analysis.analyze_jacobian2(self)
+        return int((f1 == 2).sum() + (f2 == 2).sum())
+
+    def integral_checks(self, x=None) -> dict:
+        """Salt advection/diffusion conservation integrals
+        (integrals.F90:17-89): both must vanish over the ocean."""
+        from . import analysis
+        adv = analysis.salt_advection(self, x)
+        dif = analysis.salt_diffusion(self, x)
+        return {"salt advection": float(np.sum(adv)),
+                "salt diffusion": float(np.sum(dif))}
+
+    def set_land_mask(self, landm: np.ndarray, *,
+                      finalized: bool = False,
+                      file_ghosts: bool = False) -> None:
+        """Install a new land mask and rebuild everything that depends on
+        it: the forcing fields read from files (their land cells),
+        atoms, mixing, integral condition, preconditioner closures (with
+        the old mask's factors, prepared operator and CUDA graphs
+        released) and deflator; jac and diagB are cleared.  Raw (l, m, n)
+        masks are finalized first (flood-fill of closed cells, periodic
+        seam, reference topo.F90:41-450)."""
+        t = self.params.sublist("THCM")
+        cfg = self.cfg
+        landm = np.asarray(landm)
+        if landm.shape == (cfg.l, cfg.m, cfg.n):
+            # raw interior mask -> padded (l+2, m+2, n+2) convention;
+            # no file ghosts exist, so the periodic seam is generated
+            # (open wherever both ends are ocean, topo.F90:314-318)
+            full = np.full((cfg.l + 2, cfg.m + 2, cfg.n + 2), 1,
+                           dtype=np.int32)
+            full[1:cfg.l + 1, 1:cfg.m + 1, 1:cfg.n + 1] = landm
+            landm = full
+            file_ghosts = False
+        if not finalized:
+            landm = lm.finalize_mask(landm, self.grid, cfg.periodic,
+                                     flat=bool(t.get("Flat Bottom")),
+                                     file_ghosts=file_ghosts)
+        self.landm = landm
+        self._refresh_data_fields()
+        self._setup_mask_operators()
+        log.INFO("Ocean: land mask replaced; operators rebuilt")
+
+    def _refresh_data_fields(self) -> None:
+        """Read the forcing fields that come from files again for the
+        current mask (the Levitus interpolation fills land cells, the
+        salinity perturbation is zero on land); the monthly forcing's
+        annual means follow them.  Fields no file gives are kept."""
+        fresh = self._read_forcing_fields(self.params.sublist("THCM"),
+                                          self._data_dir)
+        if not fresh:
+            return
+        self.fields = self.fields._replace(**fresh)
+        mf = self.monthly_forcing
+        if mf is not None:
+            annual = self._make_monthly_forcing()
+            for k in ("ataux", "atauy", "atatm", "aemip", "atemp", "asalt"):
+                setattr(mf, k, getattr(annual, k))
 
     # ------------------------------------------------------------------
     # Model contract
@@ -707,9 +801,16 @@ class Ocean:
         """Solve J x = b; keeps the solution (Ocean.C:1060-1151)."""
         if self.jac is None:
             self.compute_jacobian()
+        return self._solve_operator(self.jac, b)
+
+    def _solve_operator(self, An, b):
+        """Solve An x = b through the configured stack (row scaling,
+        Precision, the GMRES-IR tail, the pressure deflator of J): An is
+        J or a tensor with J's pressure null modes, such as the topography
+        homotopy's blended tensor.  Keeps the solution."""
         tol = self.solver_params.get("FGMRES tolerance")
         nullq = self._get_deflator()
-        factors, factors32 = self._get_prec_factors()
+        factors, factors32 = self._get_prec_factors(An)
         b_s = b if self._rowscale is None else b * self._rowscale
         with log.timer("Ocean: solve"):
             if self._prec_host_only:

@@ -308,3 +308,94 @@ def test_kernel_on_shifted_operator_on_card():
     torch.testing.assert_close(
         y, stencil_hopper.apply_plain(AnK, x, periodic=False),
         rtol=2e-5, atol=2e-5)
+
+
+def _blended_solve(device):
+    """The leg test8x8x4_3 -> test8x8x4_1 of the masked 8x8x4 grid at
+    Delta 0.4 from a random state and x_A, BGS + Mixed at 1e-2 (from such
+    a state one f32 inner solve of J_B or J_h reaches 2e-3 to 6e-4, and
+    the next stalls): the blended tensor's solve of -F_h, with the
+    launches of the kernel."""
+    from iemic_tpu_torch.models.ocean import landmask as lm
+    from iemic_tpu_torch.topo import Topo
+    o = _island(device, {"Preconditioning": "BGS", "Precision": "Mixed",
+                         "FGMRES tolerance": 1e-2})
+    masks = [lm.read_mask_file(os.path.join(DATA, "mkmask", name), o.grid)
+             for name in ("test8x8x4_3", "test8x8x4_1")]
+    topo = Topo(o, {"Number of mask files": 0})
+    topo.set_masks(masks)
+    topo.initialize()
+    rng = np.random.default_rng(1)
+    interop.install_state(o, 0.05 * rng.standard_normal(
+        tuple(o.state.shape)))
+    topo.set_par("Delta", 0.4)
+    topo.compute_rhs()
+    topo.compute_jacobian()
+    J_B = o.jac
+    before = stencil_hopper.LAUNCHES
+    x = topo.solve(-topo.rhs)
+    assert o.jac is J_B and o.solve_relres <= 1e-2
+    return x.cpu(), stencil_hopper.LAUNCHES - before, topo
+
+
+@pytest.mark.cuda
+@needs_card
+def test_blended_solve_on_card_matches_cpu():
+    """Topo.solve on the card runs the ocean's Mixed stack on the
+    row-scaled blended tensor through the kernel (the launch count
+    rises) and meets its tolerance, and the CPU's f64 operator finds the
+    card's solution within that tolerance too (two solves to 1e-2 whose
+    f32 inner solves sum in another order may differ by more than that
+    in the solution itself)."""
+    x_card, launched, _ = _blended_solve("cuda")
+    _, none, topo = _blended_solve("cpu")
+    assert launched > 0 and none == 0
+    o = topo.model
+    nullq = o._get_deflator()
+    b = (-topo.rhs * o._rowscale).reshape(-1)
+    b = b - nullq @ (nullq.T @ b)
+    r = b - o._mv64(x_card.reshape(-1), nullq)
+    assert float(r.norm() / b.norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+@needs_card
+def test_solve_covariance_on_card_matches_cpu():
+    """solve_covariance of the 4x4x4 ocean on the card against the CPU
+    over five rails iterations (an unconverged rails iteration amplifies
+    rounding differences, tests/test_torch_lyapunov.py): trace and
+    spectrum to 1e-8 relative, the factor on the card."""
+    from iemic_tpu_torch.lyapunov import LyapunovModel
+    out = []
+    for device in ("cuda", "cpu"):
+        o = Ocean({"THCM": {"Global Grid-Size n": 4, "Global Grid-Size m": 4,
+                            "Global Grid-Size l": 4, "Periodic": False,
+                            "Starting Parameters": {"Combined Forcing": 0.0}}},
+                  device=device)
+        out.append(LyapunovModel(o, {"Tolerance": 1e-4,
+                                     "Maximum Iterations": 5,
+                                     "Noise Amplitude": 1e-2})
+                   .solve_covariance())
+    card, cpu = out
+    assert card["iterations"] == cpu["iterations"]
+    assert abs(card["trace"] - cpu["trace"]) <= 1e-8 * abs(cpu["trace"])
+    top = abs(cpu["spectrum"][0])
+    assert np.abs(card["spectrum"] - cpu["spectrum"]).max() <= 1e-8 * top
+
+
+@pytest.mark.cuda
+@needs_card
+def test_min_norm_solve_on_card_matches_numpy():
+    """The SVD minimal-norm solve on CUDA equals np.linalg.lstsq on a
+    rank-deficient block, where torch.linalg.lstsq on CUDA (gels, full
+    rank only) does not."""
+    from iemic_tpu_torch.lyapunov import min_norm_solve
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((60, 45)) @ rng.standard_normal((45, 60))
+    B = rng.standard_normal((60, 5))
+    want = np.linalg.lstsq(A, B, rcond=None)[0]
+    At, Bt = torch.as_tensor(A).cuda(), torch.as_tensor(B).cuda()
+    got = min_norm_solve(At, Bt).cpu().numpy()
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+    gels = torch.linalg.lstsq(At, Bt).solution.cpu().numpy()
+    assert not np.abs(gels - want).max() <= 1e-6 * np.abs(want).max()

@@ -140,7 +140,14 @@ def test_port_never_imports_jax():
                "iemic_tpu_torch.native.milu",
                "iemic_tpu_torch.models.ocean.diagnostics",
                "iemic_tpu_torch.utils.numjac",
-               "iemic_tpu_torch.utils.hashing"] + [
+               "iemic_tpu_torch.utils.hashing",
+               "iemic_tpu_torch.models.ocean.analysis",
+               "iemic_tpu_torch.topo", "iemic_tpu_torch.topo.topo",
+               "iemic_tpu_torch.lyapunov", "iemic_tpu_torch.lyapunov.rails",
+               "iemic_tpu_torch.lyapunov.model", "iemic_tpu_torch.post",
+               "iemic_tpu_torch.post.masks",
+               "iemic_tpu_torch.main.run_topo",
+               "iemic_tpu_torch.main.run_lyapunov"] + [
         "iemic_tpu_torch.solvers." + name for name in (
             "bgs", "eigen", "factory", "fgmres", "idr", "mg",
             "preconditioner", "rearranger", "saddlepoint")] + [
