@@ -101,13 +101,28 @@ Phases, each printing its own line:
                 against the CPU (trace and spectrum to 1e-6); one solve of
                 the bundle's BGS + Mixed at the point, capped, through the
                 f32 kernel
+ 12. coupled  — (a) run/aquaplanet cut to 16x8x4 (ocean on BGS, scheme
+                C/F) on the card against the CPU: F, J v and the six
+                coupling blocks to 1e-10, one f64 BGS sweep and the first
+                Newton solve from rest to the solve's tolerance, the
+                solve's iterations within 2.  (b) run_coupled on a copy of
+                run/aquaplanet at full width (64x32x12) from rest, one
+                continuation step (cut, see _aquaplanet_copy): every
+                coupled solve's iterations, true relres and seconds (a
+                stalled one printed as stalled), the Newton |F| sequence,
+                whether the step was accepted, and one coupled FGMRES
+                iteration split with synchronised timers.  (c)
+                time_coupled there, COUPLED_TIME_STEPS theta steps: NR, MV
+                and seconds per step, status 0.  The coupled path is f64
+                and launches no kernel: the phase's launch count is
+                printed and must be 0
 
 The line before the last is the kernels' JSON record: ms, plain_ms and
 bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
 on the effort phase's periodic 96x38x12 Jacobian, the main path's own
 operator, whose zero coefficients CSR leaves out (the effort line gives
 every entry point's time on it beside cuSPARSE); launches of the main,
-transient, topo and lyapunov phases.  The last line is {"ok": true,
+transient, topo, lyapunov and coupled phases.  The last line is {"ok": true,
 "device": {...}}.
 Any failed check raises (exit code 1), and a run that outlasts
 WATCHDOG_S seconds prints its stack and exits with code 1.
@@ -317,6 +332,26 @@ LYAPUNOV_STEPS = 1
 LYAPUNOV_CHECK_GRID = (16, 8)
 LYAPUNOV_CHECK_ITERS = 3
 LYAPUNOV_CHECK_TOL = 1e-6
+# the coupled phase: run/aquaplanet (ocean 64x32x12 periodic, atmosphere
+# and sea ice 64x32; scheme C, forward block Gauss-Seidel, the ocean on
+# BGS).  (a) holds the card to the CPU on a copy cut to
+# COUPLED_CHECK_GRID (n, m, l): F, J v, the six coupling blocks and one
+# coupled solve to COUPLED_CHECK_TOL, the solve's iterations within 2.
+# (b) and (c) run the bundle at full width; what is cut there is in
+# _aquaplanet_copy.
+AQUAPLANET = os.path.join(REPO, "run", "aquaplanet")
+COUPLED_CHECK_GRID = (16, 8, 4)
+COUPLED_CHECK_TOL = 1e-10
+COUPLED_NEWTON_ITERS = 3
+# the continuation's "predictor bound" at full width: at rest |F| is 1.7e3
+# (the sea ice's background fluxes over 2,048 surface cells), above the
+# default bound of 1e3, so with it the step is rejected at the predictor
+# before any Newton iteration (seen on the card)
+COUPLED_PREDICTOR_BOUND = 1e6
+COUPLED_TIME_STEPS = 2
+# coupled FGMRES iterations of the solve the per-iteration split is
+# taken from
+COUPLED_SPLIT_ITERS = 10
 
 
 def card() -> str:
@@ -2087,6 +2122,312 @@ def phase_lyapunov(hopper, card_line: str) -> dict:
     return _lyapunov_bgs_solve(hopper, x, par, card_line)
 
 
+def _aquaplanet_copy(tmp: str, name: str, grid=None) -> str:
+    """Copy run/aquaplanet into tmp/name, no state file (the card's
+    machine has no h5py), the grid cut to grid = (n, m, l) where given.
+
+    What is cut at full width, and why.  Continuation: one step
+    ("maximum number of steps" 1, bundle 500) and no retry of a rejected
+    step ("minimum step size" the initial step: from rest the bundle's
+    first step fails and retries at halved steps down to 1e-8, 20 resets
+    in both packages on run/coupled's 6x6x4 cut), with the predictor
+    bound COUPLED_PREDICTOR_BOUND (default 1e3), of at most
+    COUPLED_NEWTON_ITERS Newton iterations (bundle 8): from rest the
+    coupled Newton is erratic, |F| 368 -> 4 -> 4710 -> 968 on the 16x8x4
+    cut on the CPU, with solves that end at the 200-iteration cap.
+    Time stepping: COUPLED_TIME_STEPS steps (bundle 100), "HDF5 output
+    frequency" 0 (the coupled model writes no state file anyway).  The
+    grid, the schemes, FGMRES 1e-3 and 200 iterations are the bundle's."""
+    from iemic_tpu_torch.config import read_xml, write_xml
+    work = os.path.join(tmp, name)
+    shutil.copytree(AQUAPLANET, work)
+
+    def edit(fname, fn):
+        p = read_xml(os.path.join(work, fname))
+        fn(p)
+        write_xml(p, os.path.join(work, fname))
+
+    def ocean(p):
+        p.set("Save state", False)
+        if grid:
+            t = p.sublist("THCM")
+            for k, v in zip("nml", grid):
+                t.set(f"Global Grid-Size {k}", v)
+
+    def surface(p):
+        if grid:
+            p.set("Global Grid-Size n", grid[0])
+            p.set("Global Grid-Size m", grid[1])
+
+    def continuation(p):
+        p.set("maximum number of steps", 1)
+        p.set("minimum step size", p.get("initial step size"))
+        p.set("maximum Newton iterations", COUPLED_NEWTON_ITERS)
+        p.set("predictor bound", COUPLED_PREDICTOR_BOUND)
+
+    def stepper(p):
+        p.set("number of time steps", COUPLED_TIME_STEPS)
+        p.set("HDF5 output frequency", 0)
+
+    edit("ocean_params.xml", ocean)
+    edit("atmosphere_params.xml", surface)
+    edit("seaice_params.xml", surface)
+    edit("continuation_params.xml", continuation)
+    edit("timestepper_params.xml", stepper)
+    return work
+
+
+def _coupled_pieces(c, seed: int = 0) -> tuple[dict, int]:
+    """F, J v and the six coupling blocks at a seeded small state (numpy
+    inputs, sea-ice mask nonzero), and at rest, where the bundle starts,
+    one application of the ocean's f64 BGS sweep and the first Newton
+    solve (J x = -F, driven by the sea ice's background fluxes), as
+    numpy; and the solve's (iterations, true relres, tolerance)."""
+    from iemic_tpu_torch import interop
+    rng = np.random.default_rng(seed)
+    c.set_state(interop.tensor(0.05 * rng.standard_normal(c.dim), c.device))
+    c.compute_rhs()
+    c.compute_jacobian()
+    out = {"F": c.get_rhs()}
+    v = interop.tensor(rng.standard_normal(c.dim), c.device)
+    out["J v"] = c.apply_matrix(v)
+    parts = c.split(v)
+    for i in range(3):
+        for j in range(3):
+            if i != j:
+                out[f"C{i}{j} v"] = c.coupling_apply(i, j, parts[j])
+    c.set_state(torch.zeros_like(c.get_state()))
+    c.compute_rhs()
+    c.compute_jacobian()
+    # the pressure modes the coupled solve deflates from the ocean block
+    q = c.ocean._get_deflator()
+    out["null modes"] = q if q is not None else c.get_state()[:0]
+    out["BGS sweep"] = c._model_precon(0, parts[0])
+    out["solve"] = c.solve(-c.get_rhs())
+    return ({k: t.cpu().numpy() for k, t in out.items()},
+            (c.solve_iters, c.solve_relres, c.solve_tol))
+
+
+def _coupled_check(tmp: str, card_line: str) -> None:
+    """(a) the card against the CPU on the cut aquaplanet."""
+    from iemic_tpu_torch.models.coupled import build_coupled_from_files
+    work = _aquaplanet_copy(tmp, "check", COUPLED_CHECK_GRID)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = _coupled_pieces(
+            build_coupled_from_files(work, device=device))
+        runs[device] += (time.perf_counter() - t0,)
+    (got, (its_card, rel_card, tol), t_card), (ref, (its_cpu, rel_cpu, _),
+                                               t_cpu) = (runs["cuda"],
+                                                         runs["cpu"])
+    gaps = {k: float(np.abs(got[k] - ref[k]).max(initial=0.0)
+                     / max(np.abs(ref[k]).max(initial=0.0), 1e-300))
+            for k in ref}
+    n, m, l = COUPLED_CHECK_GRID
+    modes = got["null modes"].shape[-1], ref["null modes"].shape[-1]
+    print(f"coupled card against CPU, run/aquaplanet cut to {n}x{m}x{l}: "
+          f"pressure modes deflated {modes[0]} on the card, {modes[1]} on "
+          f"the CPU; "
+          + ", ".join(f"{k} {g:.2e}" for k, g in gaps.items())
+          + f" (limit {COUPLED_CHECK_TOL:g}, the BGS sweep and the solve "
+          f"{tol:g}); solve {its_card} iterations to true relres "
+          f"{rel_card:.3e} on the card, {its_cpu} to {rel_cpu:.3e} on the "
+          f"CPU; card {t_card:.1f} s, CPU {t_cpu:.1f} s [{card_line}]",
+          flush=True)
+    # the BGS sweep's inner Krylov solves stop on tolerances, so where
+    # rounding moves an inner iterate across one the two sweeps part; the
+    # sweep and the solve built on it are held to the solve's tolerance
+    exact = [k for k in gaps if k not in ("BGS sweep", "solve")]
+    if not (modes[0] == modes[1]
+            and all(gaps[k] <= COUPLED_CHECK_TOL for k in exact)
+            and gaps["BGS sweep"] <= tol and gaps["solve"] <= tol
+            and max(rel_card, rel_cpu) <= tol
+            and abs(its_card - its_cpu) <= 2):
+        raise AssertionError(f"the coupled model on the card disagrees "
+                             f"with the CPU: {gaps}, {its_card} against "
+                             f"{its_cpu} iterations")
+
+
+_COUPLED_SOLVE = re.compile(
+    r"CoupledModel: FGMRES (\d+) iters, relres=(\S+) \(estimate (\S+), "
+    r"tolerance (\S+)\) in (\S+) s")
+
+
+def _coupled_solves(info: str) -> list[tuple[int, float, float, float]]:
+    """(iterations, true relres, tolerance, seconds) of every coupled
+    solve in a run's info_0.txt."""
+    return [(int(a), float(b), float(d), float(e))
+            for a, b, _, d, e in _COUPLED_SOLVE.findall(info)]
+
+
+def _print_solves(what: str, solves) -> None:
+    for k, (its, rel, tol, sec) in enumerate(solves):
+        print(f"{what} solve {k + 1}: {its} iterations, true relres "
+              f"{rel:.3e} ({'reached' if rel <= tol else 'STALLED short of'}"
+              f" {tol:g}), {sec:.3f} s", flush=True)
+
+
+def _synced(fn, reps: int = 3) -> float:
+    """Median wall seconds of fn() between two synchronisations."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out))
+
+
+def _coupled_split(c, card_line: str) -> None:
+    """One coupled FGMRES iteration at full width taken apart with
+    synchronised timers, at the model's last Jacobian: the ocean's f64
+    matvec and BGS apply, the atmosphere's LU solve, the sea ice's solve,
+    each coupling block, and the host's Arnoldi (a solve of
+    COUPLED_SPLIT_ITERS iterations less its matvecs and preconditioner
+    applications)."""
+    from iemic_tpu_torch import interop
+    rng = np.random.default_rng(1)
+    v = interop.tensor(rng.standard_normal(c.dim), c.device)
+    parts = c.split(v)
+    t_jac = _synced(c.compute_jacobian, 1)
+    t_blocks = _synced(lambda: [c._block(i, j) for i in range(3)
+                                for j in range(3) if i != j], 1)
+    t_factors = _synced(lambda: c._model_precon(0, parts[0]), 1)
+    t_lu = _synced(lambda: c.atmos.solve(parts[1]), 1)
+    pieces = {
+        "ocean f64 matvec": _synced(lambda: c.ocean.apply_matrix(parts[0])),
+        "ocean BGS apply": _synced(lambda: c._model_precon(0, parts[0])),
+        "atmosphere LU solve": _synced(lambda: c.atmos.solve(parts[1])),
+        "sea-ice solve": _synced(lambda: c.seaice.solve(parts[2])),
+    }
+    for i in range(3):
+        for j in range(3):
+            if i != j:
+                pieces[f"coupling C{i}{j}"] = _synced(
+                    lambda i=i, j=j: c.coupling_apply(i, j, parts[j]))
+    spent = {"mv": 0.0, "pc": 0.0}
+    mv, pc = c.apply_matrix, c.apply_precon
+
+    def timed(key, fn):
+        def call(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(x)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return y
+        return call
+
+    c.apply_matrix, c.apply_precon = timed("mv", mv), timed("pc", pc)
+    tol, iters = c.fgmres_tol, c.fgmres_iters
+    c.fgmres_tol, c.fgmres_iters = 1e-14, COUPLED_SPLIT_ITERS
+    try:
+        total = _synced(lambda: c.solve(v), 1)
+    finally:
+        c.apply_matrix, c.apply_precon = mv, pc
+        c.fgmres_tol, c.fgmres_iters = tol, iters
+    n_it = c.solve_iters
+    # the solve applies the matrix once more for its true residual
+    pieces["host Arnoldi"] = (total - spent["mv"] - spent["pc"]) / n_it
+    per_it = (total - spent["mv"] / (n_it + 1)) / n_it
+    print(f"coupled iteration split at 64x32x12 (seconds; per-Jacobian: "
+          f"Jacobian {t_jac:.3f}, coupling blocks {t_blocks:.3f}, ocean "
+          f"factors and first BGS apply {t_factors:.3f}, atmosphere LU "
+          f"factor and first solve {t_lu:.3f}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in pieces.items())
+          + f"; one coupled FGMRES iteration {per_it:.4f} ({n_it} "
+          f"iterations: matvec {spent['mv'] / (n_it + 1):.4f}, "
+          f"preconditioner {spent['pc'] / n_it:.4f}) [{card_line}]",
+          flush=True)
+
+
+def phase_coupled(hopper, card_line: str) -> dict:
+    """(a) the card against the CPU on the cut aquaplanet; (b) run_coupled
+    and (c) time_coupled on run/aquaplanet at full width on the card.
+    Returns the kernel launches of (b) and (c) by entry point: none, as
+    the coupled path runs f64 throughout."""
+    from iemic_tpu_torch.main import run_coupled, time_coupled
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _coupled_check(tmp, card_line)
+
+        work = _aquaplanet_copy(tmp, "full")
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        status, cpl, cont = run_coupled.run(work, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        info = open(os.path.join(work, "info_0.txt")).read()
+        cdata = open(os.path.join(work, "cdata.txt")).read()
+        print(f"coupled run_coupled on run/aquaplanet (64x32x12, C/F, BGS "
+              f"ocean, FGMRES 1e-3 / 200) from rest: status={status} "
+              f"wall={wall:.1f} s [{card_line}]", flush=True)
+        solves = _coupled_solves(info)
+        _print_solves("coupled", solves)
+        newton = re.findall(r"(?:Newton iter \d+: \|R\|=|norm too big! )"
+                            r"(\S+)", info)
+        pred = re.findall(r"predictor: .*\|rhs\|=(\S+)", info)
+        rows = [ln for ln in cdata.splitlines()
+                if ln.strip() and not ln.startswith("#")]
+        outcome = ("accepted" if rows else "rejected: "
+                   + "; ".join(sorted(set(re.findall(
+                       r"(norm too big|Newton failed after \d+ steps|"
+                       r"Reached dsMin|dx\| = \S+ >> old)", info)))))
+        print(f"coupled step: |F| predictor {' '.join(pred)} | after each "
+              f"Newton iteration {' '.join(newton)} ({len(newton)} Newton "
+              f"iterations); step {outcome}", flush=True)
+        for line in cdata.strip().splitlines():
+            print("coupled cdata " + line, flush=True)
+        _coupled_split(cpl, card_line)
+        x = cpl.get_state()
+        finite = bool(torch.isfinite(x).all())
+        del cpl, cont
+
+        work = os.path.join(tmp, "full")
+        t0 = time.perf_counter()
+        tstatus, tcpl, _ = time_coupled.run(work, "cuda")
+        torch.cuda.synchronize()
+        twall = time.perf_counter() - t0
+        by_entry = dict(hopper.LAUNCHES_BY_ENTRY)
+        tinfo = open(os.path.join(work, "info_0.txt")).read()
+        tdata = [ln.split() for ln in
+                 open(os.path.join(work, "tdata.txt")).read().splitlines()
+                 if ln.strip() and not ln.startswith("#")]
+        steps = tinfo.split("Timestepping: t =")[1:]
+        print(f"coupled time_coupled on run/aquaplanet (64x32x12) from "
+              f"rest, {COUPLED_TIME_STEPS} theta steps: status={tstatus} "
+              f"wall={twall:.1f} s [{card_line}]", flush=True)
+        for k, block in enumerate(steps):
+            ss = _coupled_solves(block)
+            nr = len(re.findall(r"Newton iter \d+:", block))
+            newton_ok = "did not converge" not in block
+            print(f"coupled time step attempt {k + 1}: dt "
+                  f"{block.split('dt =')[1].split()[0]}, NR {nr}, MV "
+                  f"{sum(s[0] for s in ss)} (per solve "
+                  f"{' '.join(str(s[0]) for s in ss)}), solves "
+                  f"{sum(s[3] for s in ss):.3f} s, Newton "
+                  f"{'converged' if newton_ok else 'did not converge'}",
+                  flush=True)
+        for row in tdata:
+            print("coupled tdata " + " ".join(row), flush=True)
+        tfinite = bool(torch.isfinite(tcpl.get_state()).all())
+
+    if not solves or not all(np.isfinite(r) for _, r, _, _ in solves):
+        raise AssertionError(f"a coupled solve is not finite: {solves}")
+    if not (finite and all(np.isfinite(float(v)) for v in newton)):
+        raise AssertionError("the coupled continuation's state or |F| is "
+                             "not finite")
+    if sum(by_entry.values()):
+        raise AssertionError(f"the coupled path launched the f32 kernel: "
+                             f"{by_entry}")
+    if not (tstatus == 0 and len(tdata) == COUPLED_TIME_STEPS and tfinite):
+        raise AssertionError(f"time_coupled returned {tstatus} after "
+                             f"{len(tdata)} of {COUPLED_TIME_STEPS} steps")
+    return by_entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2097,6 +2438,7 @@ def main() -> int:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
+    t_start = time.perf_counter()
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     card_line = card()
     print(f"device {card_line}", flush=True)
@@ -2145,14 +2487,20 @@ def main() -> int:
     lyapunov_launches = phase_lyapunov(hopper, card_line)
     print(f"lyapunov phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"lyapunov phase launches {lyapunov_launches}", flush=True)
+    t0 = time.perf_counter()
+    coupled_launches = phase_coupled(hopper, card_line)
+    print(f"coupled phase {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"coupled phase launches {sum(coupled_launches.values())} "
+          f"{coupled_launches}", flush=True)
 
+    print(f"smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [dict(
         name=entry, route="cuda",
         source="iemic_tpu_torch/csrc/stencil_matvec.cu",
         replaces="iemic_tpu/ops/stencil_pallas.py:84",
         launches=sum(phase[entry] for phase in (
             main_launches, transient_launches, topo_launches,
-            lyapunov_launches)),
+            lyapunov_launches, coupled_launches)),
         library_ms=jacobian_library_ms, **rec[entry])
         for entry in hopper.ENTRIES]}))
     faulthandler.cancel_dump_traceback_later()

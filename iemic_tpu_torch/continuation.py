@@ -32,6 +32,17 @@ def _norm_inf(v) -> float:
     return float(torch.amax(torch.abs(v)))
 
 
+def _missed_tolerance(model) -> tuple[float, float] | None:
+    """(true relres, requested tolerance) of the model's last solve where
+    that solve stopped short of its request, else None.  Models that
+    record no relres (no ``solve_relres``/``solve_tol``) never miss."""
+    relres = getattr(model, "solve_relres", None)
+    tol = getattr(model, "solve_tol", None)
+    if relres is None or tol is None or relres <= tol:
+        return None
+    return relres, tol
+
+
 def _sgn(x: float) -> int:
     return 1 if x >= 0 else -1
 
@@ -341,6 +352,7 @@ class Continuation:
         res = 100.0
         y = None
         self.newton_iter = 0
+        stalled = False
         while self.newton_iter < self.max_newton_iters:
             res0 = res
             mode = "F" if self.newton_iter == 0 else "A"
@@ -366,11 +378,15 @@ class Continuation:
 
             m.compute_jacobian()
 
+            missed = []
             if not self.newt_chord_hybr:
                 m.solve(self.dfdpar)
                 y = m.get_solution()
+                missed.append(_missed_tolerance(m))
             m.solve(R)
             z = m.get_solution()
+            missed.append(_missed_tolerance(m))
+            missed = [mt for mt in missed if mt is not None]
 
             if self.normalize_strategy == "O":
                 if self.newt_chord_hybr:
@@ -424,6 +440,17 @@ class Continuation:
                 res = self.norm_rhs_test
             elif self.residual_test == "D":
                 res = max(abs(par_dir), _norm_inf(state_dir))
+                # a small update from a solve that made no progress is no
+                # sign of convergence: under "D" the iterate counts only
+                # where every solve of this iteration reached its request
+                # (the JAX corrector, iemic_tpu/continuation.py:433-446,
+                # accepts such updates; ROADMAP queue 3)
+                for relres, tol in missed:
+                    log.INFO(f"   Newton iter {self.newton_iter}: a "
+                             f"solve stopped at relres {relres:.3e}, short "
+                             f"of its tolerance {tol:.3e}; the update does "
+                             f"not count as converged")
+                stalled = bool(missed)
             else:
                 log.WARNING("undefined residual test!")
                 res = 999.0
@@ -433,7 +460,7 @@ class Continuation:
                      f"dl={par_dir:.3e} l={self.par:.8e} "
                      f"ratio={res0 / res if res else np.inf:.2f}")
 
-            if res < self.newton_tol \
+            if res < self.newton_tol and not stalled \
                     and self.newton_iter >= self.min_newton_iters:
                 break
 
@@ -443,7 +470,7 @@ class Continuation:
         log.track_iterations("Continuation: Newton iterations...",
                              self.newton_iter)
 
-        if res > self.newton_tol:
+        if res > self.newton_tol or stalled:
             log.INFO(f"Continuation: Newton failed after "
                      f"{self.newton_iter} steps")
             if self.reject_failed_newton:

@@ -40,9 +40,17 @@ def install_state(ocean, x) -> None:
     ocean.set_state(state(x, g.l, g.m, g.n, ocean.device))
 
 
-def install_par(ocean, par) -> None:
-    """The whole 30-entry parameter vector."""
-    ocean.par = tensor(par, ocean.device)
+def install_par(model, par) -> None:
+    """The whole parameter vector of an ocean (30 entries), atmosphere
+    (7) or sea ice (5)."""
+    model.par = tensor(par, model.device)
+
+
+def install_flat_state(model, x) -> None:
+    """The flat state of an atmosphere (3*n*m + 1), a sea ice (4*n*m + 1)
+    or a coupled model (the ocean's (6, l, m, n), the atmosphere's and the
+    sea ice's one after the other), in the layout both packages keep."""
+    model.set_state(tensor(np.asarray(x).reshape(-1), model.device))
 
 
 def install_forcing(ocean, **fields) -> None:

@@ -16,7 +16,10 @@ Port of ``iemic_tpu/models/ocean/assembly.py``:
 
 Every function works on the device and dtype of its tensor arguments;
 ``par`` (30 entries, see constants.py) is a tensor.  The coupled
-(atmosphere / sea-ice) branches are not ported yet.
+(atmosphere / sea-ice) branches take their coefficients from
+``CouplingCoefs`` and their fields from ``ForcingFields``; a field may
+carry a forward-mode tangent (``torch.autograd.forward_ad``), which the
+coupled model's coupling blocks push through ``lin`` and ``forcing``.
 """
 
 from __future__ import annotations
@@ -32,8 +35,26 @@ from . import atoms as at
 from . import nonlin
 from . import constants as c
 
-_COUPLED = ("coupled ocean forcing/atoms: ROADMAP queue 1 item 12 "
-            "(other models)")
+
+
+class CouplingCoefs(NamedTuple):
+    """Coefficients fed in by the atmosphere / sea-ice models
+    (reference usrc.F90:237-333 set_atmos_parameters /
+    set_seaice_parameters and m_atm module state)."""
+    Ooa: float = 0.0
+    lvsc: float = 0.0
+    eta: float = 0.0
+    qdim: float = 0.01
+    dqso: float = 0.0
+    nus: float = 0.0
+    zeta: float = 0.0   # sea-ice zeta
+    a0: float = 0.0     # freezing-temperature S sensitivity
+    Lf: float = 1.0     # latent heat of fusion (avoid div-by-0)
+    eo0: float = 0.0
+    albe0: float = 0.0
+    albed: float = 0.0
+    q0: float = 0.0
+    qvar: float = 1.0
 
 
 class LinearAtoms(NamedTuple):
@@ -90,11 +111,21 @@ def build_linear_atoms(grid: Grid, landm: np.ndarray, *, device,
                           for k, v in raw.items()})
 
 
+def masksi_atom(grid: Grid, msi: torch.Tensor) -> torch.Tensor:
+    """Sea-ice mask atom (spf.F90:347-359): diagonal at the surface."""
+    atom = torch.zeros((27, grid.l, grid.m, grid.n), dtype=msi.dtype,
+                       device=msi.device)
+    atom[4, grid.l - 1] = msi
+    return atom
+
+
 def lin(A: LinearAtoms, par: torch.Tensor, grid: Grid, *,
-        tres: int, sres: int, coupled_T: int, coupled_S: int) -> torch.Tensor:
-    """Combine linear atoms into Al (usrc.F90:588-772)."""
-    if coupled_T == 1 or coupled_S == 1:
-        raise NotImplementedError(_COUPLED)
+        tres: int, sres: int, coupled_T: int, coupled_S: int,
+        cpl: CouplingCoefs = CouplingCoefs(),
+        msi: torch.Tensor | None = None,
+        QTnd: float = 0.0, QSnd: float = 0.0) -> torch.Tensor:
+    """Combine linear atoms into Al (usrc.F90:588-772); the coupled T and
+    S rows take the sea-ice mask msi (m, n) and the coefficients cpl."""
     EV = par[c.EK_V]
     EH = par[c.EK_H]
     ph = (1.0 - par[c.MIXP]) * par[c.PE_H]
@@ -121,8 +152,33 @@ def lin(A: LinearAtoms, par: torch.Tensor, grid: Grid, *,
     Al[:, PP, UU] = A.pux
     Al[:, PP, VV] = A.pvy
     Al[:, PP, WW] = A.pwz
-    Al[:, TT, TT] = -ph * (A.txx + A.tyy) - pv * A.tzz + tres * bi * A.tc
-    Al[:, SS, SS] = -ph * (A.txx + A.tyy) - pv * A.tzz + sres * bi * A.sc
+    if coupled_T == 1 or coupled_S == 1:
+        if msi is None:
+            msi = torch.zeros((m, n), dtype=par.dtype, device=par.device)
+        mc = masksi_atom(grid, msi)
+    if coupled_T == 1:
+        dedt = cpl.lvsc * cpl.eta * cpl.qdim * (c.DELTAT / cpl.qdim) \
+            * cpl.dqso
+        Al[:, TT, TT] = (-ph * (A.txx + A.tyy) - pv * A.tzz
+                         + cpl.Ooa * A.tc + dedt * A.sc
+                         + mc * (QTnd * cpl.zeta * A.tc - cpl.Ooa * A.tc
+                                 - dedt * A.sc))
+        Al[:, TT, SS] = -QTnd * cpl.zeta * cpl.a0 * mc
+    else:
+        Al[:, TT, TT] = (-ph * (A.txx + A.tyy) - pv * A.tzz
+                         + tres * bi * A.tc)
+    if coupled_S == 1:
+        dedt = cpl.nus * (c.DELTAT / cpl.qdim) * cpl.dqso
+        pQSnd = par[c.COMB] * par[c.SALT] * QSnd
+        Al[:, SS, SS] = (-ph * (A.txx + A.tyy) - pv * A.tzz
+                         - mc * pQSnd * cpl.zeta * cpl.a0
+                         / (c.RHODIM * cpl.Lf))
+        QSoa = -dedt * A.sc
+        QSos = pQSnd * cpl.zeta / (c.RHODIM * cpl.Lf)
+        Al[:, SS, TT] = QSoa + mc * (QSos - QSoa)
+    else:
+        Al[:, SS, SS] = (-ph * (A.txx + A.tyy) - pv * A.tzz
+                         + sres * bi * A.sc)
     return Al
 
 
@@ -196,11 +252,18 @@ def _extended(landm: np.ndarray, l: int, m: int, n: int) -> np.ndarray:
     return lme
 
 
-def boundaries(An: torch.Tensor, landm: np.ndarray, grid: Grid
-               ) -> torch.Tensor:
+def boundaries(An: torch.Tensor, landm: np.ndarray, grid: Grid, *,
+               linear_part: bool = False) -> torch.Tensor:
     """Apply boundary conditions to (a copy of) the dependency tensor
-    (boundary.F90:2-393), preserving the exact sequential update order."""
+    (boundary.F90:2-393), preserving the exact sequential update order.
+
+    The map is affine in An: masked copies, sums and zeros, plus entries
+    set to constants (identity rows, the weak 1e-10 links).  With
+    linear_part=True those entries are set to zero instead, which gives
+    the linear part alone: the derivative of the map in the direction
+    An."""
     l, m, n = grid.l, grid.m, grid.n
+    one, weak = (0.0, 0.0) if linear_part else (1.0, 1.0e-10)
     An = An.clone()
     lme = _extended(landm, l, m, n)
 
@@ -244,7 +307,7 @@ def boundaries(An: torch.Tensor, landm: np.ndarray, grid: Grid
         mk = msk(mask)
         An[:, var, :].masked_fill_(mk, 0.0)
         An[4, :, var].masked_fill_(mk, 0.0)
-        An[4, var, var].masked_fill_(mk, 1.0)
+        An[4, var, var].masked_fill_(mk, one)
 
     # ---- bottom (loc 14) block (boundary.F90:84-110) ----------------
     b = LM[14]
@@ -278,8 +341,8 @@ def boundaries(An: torch.Tensor, landm: np.ndarray, grid: Grid
     tk = msk(t)
     An[:, WW, :].masked_fill_(tk, 0.0)
     for loc in (4, 5, 7, 8):
-        An[loc, :, WW].masked_fill_(tk, 1.0e-10)
-    An[4, WW, WW].masked_fill_(tk, 1.0)
+        An[loc, :, WW].masked_fill_(tk, weak)
+    An[4, WW, WW].masked_fill_(tk, one)
 
     # ---- standalone above-layer neighbours (boundary.F90:180-205) ---
     for loc in (19, 20, 21, 22, 24, 25, 26, 27):
@@ -330,7 +393,7 @@ def boundaries(An: torch.Tensor, landm: np.ndarray, grid: Grid
     land_c = torch.as_tensor(~ocean, device=An.device)
     An.masked_fill_(land_c, 0.0)
     for ii in (UU, VV, WW, PP, TT, SS):
-        An[4, ii, ii].masked_fill_(land_c, 1.0)
+        An[4, ii, ii].masked_fill_(land_c, one)
     return An
 
 
@@ -432,16 +495,23 @@ class ForcingFields(NamedTuple):
     adapted_emip: torch.Tensor | None = None
     internal_temp: torch.Tensor | None = None
     internal_salt: torch.Tensor | None = None
+    # coupled runs: atmosphere and sea-ice interface fields (m, n)
+    suno: torch.Tensor | None = None
+    albe: torch.Tensor | None = None
+    qatm: torch.Tensor | None = None
+    patm: torch.Tensor | None = None
+    msi: torch.Tensor | None = None
+    qsa: torch.Tensor | None = None
+    gsi: torch.Tensor | None = None
 
 
 def forcing(par: torch.Tensor, grid: Grid, landm: np.ndarray, *,
             tres: int, sres: int, its: int, ite: int, iza: int,
             coupled_T: int, coupled_S: int, forcing_type: int,
-            fields: ForcingFields) -> torch.Tensor:
+            fields: ForcingFields, cpl: CouplingCoefs = CouplingCoefs(),
+            QTnd: float = 0.0, QSnd: float = 0.0) -> torch.Tensor:
     """Assemble the forcing vector Frc (forcing.F90:4-218), shape
     (6, l, m, n)."""
-    if coupled_T == 1 or coupled_S == 1:
-        raise NotImplementedError(_COUPLED)
     l, m, n = grid.l, grid.m, grid.n
     ymin, ymax = grid.ymin, grid.ymax
     kw = dict(dtype=par.dtype, device=par.device)
@@ -465,42 +535,70 @@ def forcing(par: torch.Tensor, grid: Grid, landm: np.ndarray, *,
     Frc[UU, l - 1, 0:m - 1, :] = sigma * taux[0:m - 1]
     Frc[VV, l - 1, 0:m - 1, :] = sigma * tauy[0:m - 1]
 
+    def field(name):
+        v = getattr(fields, name)
+        return v if v is not None else zeros2()
+
     # -- temperature --------------------------------------------------
     etabi = par[c.COMB] * par[c.TEMP] * (1 - tres + tres * par[c.BIOT])
     temcor = 0.0
-    if ite == 1:
+    if ite == 1 and coupled_T == 0:
         tatm = temfun(yj, ymin, ymax, par[c.CMPR], forcing_type) \
             .expand(m, n)
         if tres == 0:
             temcor = qint(tatm, grid, landm)
     else:
-        tatm = fields.tatm if fields.tatm is not None else zeros2()
-    Frc[TT, l - 1] = etabi * (tatm - temcor)
+        tatm = field("tatm")
+    if coupled_T == 1:
+        msi = field("msi")
+        QToa = (par[c.COMB] * par[c.SUNP] * fields.suno
+                * (1.0 - cpl.albe0 - cpl.albed * field("albe"))
+                + cpl.Ooa * tatm
+                + cpl.lvsc * cpl.eta * cpl.qdim * field("qatm")
+                - cpl.lvsc * cpl.eo0)
+        QTos = QTnd * cpl.zeta * (cpl.a0 * c.S0 - c.T0)
+        Frc[TT, l - 1] = (QToa + msi * (QTos - QToa)) * surf_mask
+    else:
+        Frc[TT, l - 1] = etabi * (tatm - temcor)
 
     # -- salinity -----------------------------------------------------
-    gamma = par[c.COMB] * par[c.SALT] * (1 - sres + sres * par[c.BIOT])
+    if coupled_S == 1:
+        gamma = par[c.COMB] * par[c.SALT]
+    else:
+        gamma = par[c.COMB] * par[c.SALT] * (1 - sres + sres * par[c.BIOT])
     salcor = 0.0
     if its == 1:
         emip = salfun(yj, ymin, ymax, par[c.FPER], forcing_type) \
             .expand(m, n) * surf_mask
-        if sres == 0:
+        if sres == 0 and coupled_S == 0:
             salcor = qint(emip, grid, landm)
     else:
-        emip = fields.emip if fields.emip is not None else zeros2()
+        emip = field("emip")
 
-    spert = fields.spert if fields.spert is not None else zeros2()
-    adapted_emip = fields.adapted_emip \
-        if fields.adapted_emip is not None else zeros2()
-    if sres == 0:
+    spert = field("spert")
+    adapted_emip = field("adapted_emip")
+    if sres == 0 and coupled_S == 0:
         adapted_salcor = qint(adapted_emip, grid, landm)
         spertcor = qint(spert, grid, landm)
     else:
         adapted_salcor = 0.0
         spertcor = 0.0
-    Frc[SS, l - 1] = (gamma * (1.0 - par[c.HMTP]) * (emip - salcor)
-                      + gamma * par[c.HMTP] * (adapted_emip - adapted_salcor)
-                      + par[c.SPER] * (1 - sres + sres * par[c.BIOT])
-                      * (spert - spertcor))
+    if coupled_S == 1:
+        pQSnd = par[c.COMB] * par[c.SALT] * QSnd
+        msi = field("msi")
+        QSoa = pQSnd * (cpl.eo0 - cpl.eta * cpl.qdim * field("qatm")
+                        - field("patm"))
+        QSos = pQSnd * (cpl.zeta * (cpl.a0 * c.S0 - c.T0)
+                        - cpl.qvar * field("qsa") - cpl.q0) \
+            / (c.RHODIM * cpl.Lf)
+        Frc[SS, l - 1] = (QSoa + msi * (QSos - QSoa) - field("gsi")) \
+            * surf_mask
+    else:
+        Frc[SS, l - 1] = (gamma * (1.0 - par[c.HMTP]) * (emip - salcor)
+                          + gamma * par[c.HMTP]
+                          * (adapted_emip - adapted_salcor)
+                          + par[c.SPER] * (1 - sres + sres * par[c.BIOT])
+                          * (spert - spertcor))
 
     # -- internal (z-direction) forcing -------------------------------
     if fields.internal_temp is not None:

@@ -8,7 +8,11 @@ matrix-free Jacobian), forcing and the linear solve, all as tensors on
 one ``device`` in float64; the mixed-precision solve runs its inner
 Krylov operator in float32 through the Hopper stencil kernel.
 
-Not ported yet: the coupled flux components (ROADMAP queue 1 item 12).
+In coupled runs ("Coupled Temperature"/"Salinity" 1) the atmosphere and
+sea-ice interface fields live in ``fields`` and their coefficients in
+``cpl`` (``assembly.CouplingCoefs``), both set by the coupled model's
+synchronize; the residual's pieces take them as arguments, so that the
+coupled model can push a forward-mode tangent through them.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ...ops import stencil_hopper
 from ...solvers.fgmres import fgmres_flat, fgmres_host
 from ...utils import logging as log
 from . import assembly, constants as c, landmask as lm
-from .assembly import ForcingFields
+from .assembly import CouplingCoefs, ForcingFields
 
 F64 = torch.float64
 
@@ -258,13 +262,15 @@ class Ocean:
         elif itopo == 2:
             raw = lm.miocene(self.grid)
         else:
-            raise NotImplementedError(f"Topography option {itopo}")
+            raise ValueError(f"Topography option {itopo}: the options "
+                             "are 0, 1 and 2")
         self.landm = lm.finalize_mask(
             raw, self.grid, periodic, flat=bool(t.get("Flat Bottom")),
             file_ghosts=bool(t.get("Read Land Mask")))
 
         # ---- forcing fields -----------------------------------------
         self.fields = ForcingFields(**self._read_forcing_fields(t, data_dir))
+        self.cpl = CouplingCoefs()
         self._time = 0.0
         self.monthly_forcing = self._make_monthly_forcing() \
             if t.get("Time Dependent Forcing") else None
@@ -393,23 +399,30 @@ class Ocean:
     # ------------------------------------------------------------------
     # residual, Jacobian, operator
     # ------------------------------------------------------------------
-    def _forcing(self, par: torch.Tensor) -> torch.Tensor:
+    def _forcing(self, par: torch.Tensor, fields=None, cpl=None
+                 ) -> torch.Tensor:
         cfg = self.cfg
         return assembly.forcing(
             par, self.grid, self.landm, tres=cfg.tres, sres=cfg.sres,
             its=cfg.its, ite=cfg.ite, iza=cfg.iza,
             coupled_T=cfg.coupled_T, coupled_S=cfg.coupled_S,
-            forcing_type=cfg.forcing_type, fields=self.fields)
+            forcing_type=cfg.forcing_type,
+            fields=self.fields if fields is None else fields,
+            cpl=self.cpl if cpl is None else cpl,
+            QTnd=self.QTnd, QSnd=self.QSnd)
 
-    def _frc(self, par: torch.Tensor) -> torch.Tensor:
-        return assembly.boundary_frc_zero(self._forcing(par), self.landm,
-                                          self.grid)
+    def _frc(self, par: torch.Tensor, fields=None, cpl=None) -> torch.Tensor:
+        return assembly.boundary_frc_zero(self._forcing(par, fields, cpl),
+                                          self.landm, self.grid)
 
-    def _lin(self, par: torch.Tensor) -> torch.Tensor:
+    def _lin(self, par: torch.Tensor, fields=None, cpl=None) -> torch.Tensor:
         cfg = self.cfg
+        fields = self.fields if fields is None else fields
         return assembly.lin(self.atoms, par, self.grid, tres=cfg.tres,
                             sres=cfg.sres, coupled_T=cfg.coupled_T,
-                            coupled_S=cfg.coupled_S)
+                            coupled_S=cfg.coupled_S,
+                            cpl=self.cpl if cpl is None else cpl,
+                            msi=fields.msi, QTnd=self.QTnd, QSnd=self.QSnd)
 
     def _int_row(self, y: torch.Tensor, v: torch.Tensor,
                  scale=1.0) -> torch.Tensor:
@@ -421,28 +434,50 @@ class Ocean:
         y[self.rowintcon] = scale * self.cfg.int_sign * intval
         return y
 
-    def _rhs(self, x: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
-        """Ocean-convention residual F(x) = An(x) x + mix - Frc, with the
-        integral-condition row (THCM rhs negated, THCM.C:1000-1035)."""
+    def _nl(self, x: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
+        """The additive nonlinear (advective, EOS) tensor of the residual:
+        it does not depend on the coupling fields, so the coupled model
+        keeps it per Jacobian for its coupling blocks."""
         cfg = self.cfg
-        An = assembly.boundaries(
-            assembly.nlin(self._lin(par), x, par, self.grid, self.landm,
-                          cfg.periodic, jac=False),
-            self.landm, self.grid)
+        zero = torch.zeros((27, 6, 6, cfg.l, cfg.m, cfg.n), dtype=x.dtype,
+                           device=x.device)
+        return assembly.nlin(zero, x, par, self.grid, self.landm,
+                             cfg.periodic, jac=False)
+
+    def _an_rhs(self, Nl: torch.Tensor, par: torch.Tensor, fields=None,
+                cpl=None) -> torch.Tensor:
+        """The residual's stencil tensor An(x), from its nonlinear part."""
+        return assembly.boundaries(self._lin(par, fields, cpl) + Nl,
+                                   self.landm, self.grid)
+
+    def _rhs_from_parts(self, An: torch.Tensor, x: torch.Tensor,
+                        par: torch.Tensor, fields=None,
+                        cpl=None) -> torch.Tensor:
+        """F = An x + mix - Frc with the integral-condition row."""
+        cfg = self.cfg
         F = apply_stencil(An, x, periodic=cfg.periodic)
         if self.mixing is not None:
             F[TT:SS + 1] += self.mixing.rhs(x, par)
-        F = F - self._frc(par)
+        F = F - self._frc(par, fields, cpl)
         if cfg.sres == 0:
             intval = torch.sum(self.int_coeff * x)
             F[self.rowintcon] = cfg.int_sign * (intval
                                                 - self.int_correction)
         return F
 
-    def _jacobian(self, x: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
+    def _rhs(self, x: torch.Tensor, par: torch.Tensor, fields=None,
+             cpl=None) -> torch.Tensor:
+        """Ocean-convention residual F(x) = An(x) x + mix - Frc, with the
+        integral-condition row (THCM rhs negated, THCM.C:1000-1035)."""
+        return self._rhs_from_parts(
+            self._an_rhs(self._nl(x, par), par, fields, cpl), x, par,
+            fields, cpl)
+
+    def _jacobian(self, x: torch.Tensor, par: torch.Tensor, fields=None,
+                  cpl=None) -> torch.Tensor:
         cfg = self.cfg
-        An = assembly.nlin(self._lin(par), x, par, self.grid, self.landm,
-                           cfg.periodic, jac=True)
+        An = assembly.nlin(self._lin(par, fields, cpl), x, par, self.grid,
+                           self.landm, cfg.periodic, jac=True)
         if self.mixing is not None:
             # inserted before boundary handling, like vmix_jac in the
             # reference's matrix() (usrc.F90:472-492)
@@ -825,6 +860,7 @@ class Ocean:
         self.sol = x
         self.solve_iters = int(iters)
         self.solve_relres = float(relres)
+        self.solve_tol = float(tol)
         self.solve_log.append((self.solve_iters, self.solve_relres))
         log.track_iterations("Ocean: FGMRES iterations", self.solve_iters)
         log.INFO(f"Ocean: FGMRES solve: {self.solve_iters} iters, "
@@ -970,21 +1006,53 @@ class Ocean:
     def surface_fluxes(self) -> dict:
         """Surface heat and freshwater flux fields as (m, n) numpy arrays:
         the total T and S forcing rows of the surface layer
-        (forcing.F90:33-120).  The coupled components (shortwave,
-        sensible, latent, sea ice) come with the coupled forcing."""
-        if self.cfg.coupled_T == 1 or self.cfg.coupled_S == 1:
-            raise NotImplementedError(assembly._COUPLED)
+        (forcing.F90:33-120); in coupled mode also their components
+        (shortwave, sensible, latent, sea ice), the QToa/QTos and
+        QSoa/QSos split of ``assembly.forcing`` (the reference's flux
+        probes, probe.F90:89-471, Ocean::additionalExports,
+        Ocean.C:1904-1946)."""
+        cfg = self.cfg
         Frc = self._frc(self.par)
-        return {"TemperatureFlux": Frc[TT, -1].cpu().numpy(),
-                "SalinityFlux": Frc[SS, -1].cpu().numpy()}
+        out = {"TemperatureFlux": Frc[TT, -1].cpu().numpy(),
+               "SalinityFlux": Frc[SS, -1].cpu().numpy()}
+        f, cpl = self.fields, self.cpl
+        par = self.par.cpu().numpy()
+        zeros = np.zeros((cfg.m, cfg.n))
+
+        def fld(name):
+            v = getattr(f, name)
+            return v.cpu().numpy() if v is not None else zeros
+
+        if cfg.coupled_T == 1:
+            qsw = (par[c.COMB] * par[c.SUNP] * fld("suno")
+                   * (1.0 - cpl.albe0 - cpl.albed * fld("albe")))
+            qsh = cpl.Ooa * fld("tatm")
+            qlh = cpl.lvsc * (cpl.eta * cpl.qdim * fld("qatm") - cpl.eo0)
+            QToa = qsw + qsh + qlh
+            QTos = self.QTnd * cpl.zeta * (cpl.a0 * c.S0 - c.T0)
+            out.update(ShortwaveFlux=qsw, SensibleHeatFlux=qsh,
+                       LatentHeatFlux=qlh,
+                       SeaIceHeatFlux=fld("msi") * (QTos - QToa))
+        if cfg.coupled_S == 1:
+            pQSnd = par[c.COMB] * par[c.SALT] * self.QSnd
+            qsoa = pQSnd * (cpl.eo0 - cpl.eta * cpl.qdim * fld("qatm")
+                            - fld("patm"))
+            qsos = pQSnd * (cpl.zeta * (cpl.a0 * c.S0 - c.T0)
+                            - fld("qsa") / (c.RHODIM * cpl.Lf))
+            out.update(OceanAtmosSalFlux=qsoa,
+                       OceanSeaIceSalFlux=fld("msi") * (qsos - qsoa))
+        return out
 
     def get_s_corr(self) -> float:
         """Salinity integral correction: the area average of the surface
         salinity flux (THCM::getSCorr via get_salflux,
-        probe.F90:200-274)."""
-        if self.cfg.coupled_T == 1 or self.cfg.coupled_S == 1:
-            raise NotImplementedError(assembly._COUPLED)
+        probe.F90:200-274), without the sea-ice correction field gsi in
+        coupled mode; at a converged coupled state it equals the sea-ice
+        gamma (src/tests/test_integrals.C:156-168)."""
         flux = self._frc(self.par)[SS, -1]
+        if self.cfg.coupled_S == 1 and self.fields.gsi is not None:
+            flux = flux + self.fields.gsi * assembly._surf(
+                self.landm, self.cfg.l, self.cfg.m, self.cfg.n, flux)
         return float(assembly.qint(flux, self.grid, self.landm))
 
     def write_fort3(self, path: str = "fort.3") -> None:

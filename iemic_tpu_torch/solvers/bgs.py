@@ -140,7 +140,8 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
           rhomu_lambda: float = 7.6e-4 / 1.8e-4,
           uv_precond: str = "Columns", ts_precond: str = "Columns",
           spp_precond: str = "Jacobi", int_row=None,
-          prolong_w: float = 0.25) -> BGSPrec:
+          spp_prolong_w: float = 0.25, uv_prolong_w: float = 0.25,
+          ts_prolong_w: float = 0.25) -> BGSPrec:
     """Factor the preconditioner from the (row-scaled) stencil tensor.
 
     int_row: optional (coeff (6, l, m, n), (var, k, j, i), scale), the
@@ -148,7 +149,10 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     ATS inner operator so the subsolve is nonsingular.  landm is the
     padded (l+2, m+2, n+2) land mask; dzw optional (l,) layer weights of
     the depth average (uniform by default).  spp_scheme is accepted for
-    the JAX signature: the SIMPLE factors are always built."""
+    the JAX signature: the SIMPLE factors are always built.  Each block's
+    multigrid has its own prolongation weight: spp_prolong_w for the 2D
+    saddle's (Chat and the saddle MG), uv_prolong_w for Auv's,
+    ts_prolong_w for ATS's."""
     _, nun, _, l, m, n = An.shape
     kw = dict(dtype=An.dtype, device=An.device)
     ocean = torch.as_tensor(
@@ -197,7 +201,7 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     sv2d = torch.stack([unit(wet), unit(wet * cbpat)])
 
     spp_simple = build_simple(Spp, sv2d, periodic=periodic,
-                              prolong_w=prolong_w)
+                              prolong_w=spp_prolong_w)
 
     # 2D multigrid for the depth-averaged saddle: the 9-point stencil as
     # the dk = 0 plane of a one-layer 27-point tensor
@@ -205,7 +209,8 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     if spp_precond == "MG":
         Spp27 = An.new_zeros((27, 3, 3, 1, m, n))
         Spp27[:9, :, :, 0] = Spp
-        spp_mg = _mg.build(Spp27, periodic=periodic, prolong_w=prolong_w)
+        spp_mg = _mg.build(Spp27, periodic=periodic,
+                           prolong_w=spp_prolong_w)
 
     # rho/mu transform: Q = (1/sqrt 2) [[-1, lam], [1/lam, 1]] per (T, S)
     # pair, Q^2 = I; A_rhomu = Q A_TS Q is the pointwise 2x2 sandwich over
@@ -247,10 +252,10 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
 
     uv_mg = ts_mg = None
     if uv_precond == "MG":
-        uv_mg = _mg.build(sub_uv, periodic=periodic, prolong_w=prolong_w)
+        uv_mg = _mg.build(sub_uv, periodic=periodic, prolong_w=uv_prolong_w)
     if ts_precond == "MG":
         ts_mg = _mg.build(ts_rm if rhomu else sub_ts, periodic=periodic,
-                          prolong_w=prolong_w)
+                          prolong_w=ts_prolong_w)
     uv_xinv, uv_xdummy = _mg._xline_inv(sub_uv, periodic=periodic)
 
     ap_binv, ap_dummy = _column_tridiag_factor(

@@ -83,9 +83,19 @@ def _apply_nested_block_lists(params: ParameterList) -> None:
                 params.set("Saddlepoint scheme", sl.get("Scheme"))
             if sl.get("Precond Method", ""):
                 params.set(prec_key, sl.get("Precond Method"))
-            if sl.get("MG prolongation weight", -1.0) >= 0:
-                params.set("MG prolongation weight",
-                           float(sl.get("MG prolongation weight")))
+
+
+def _prolongation_weight(params: ParameterList, blk: str) -> float:
+    """The MG prolongation weight of one block: its own sublist's where
+    that sets one, else the flat knob (default 0.25).  The JAX package
+    folds every sublist's weight into the one flat knob, so the block
+    read last set it for Auv and ATS both (ROADMAP queue 3)."""
+    if params.is_sublist(blk + " Solver"):
+        w = params.sublist(blk + " Solver").get("MG prolongation weight",
+                                                -1.0)
+        if w >= 0:
+            return float(w)
+    return float(params.get("MG prolongation weight"))
 
 
 def make_preconditioner(params: ParameterList | dict | None, *,
@@ -122,7 +132,9 @@ def make_preconditioner(params: ParameterList | dict | None, *,
             uv_precond=params.get("Auv Precond"),
             ts_precond=params.get("ATS Precond"),
             spp_precond=params.get("Saddlepoint Precond"),
-            prolong_w=float(params.get("MG prolongation weight")))
+            **{kw: _prolongation_weight(params, blk) for kw, blk in (
+                ("spp_prolong_w", "Saddlepoint"), ("uv_prolong_w", "Auv"),
+                ("ts_prolong_w", "ATS"))})
         apply_kw = dict(
             nit_spp=params.get("Saddlepoint iterations"),
             nit_uv=params.get("Auv iterations"),

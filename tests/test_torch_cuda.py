@@ -399,3 +399,78 @@ def test_min_norm_solve_on_card_matches_numpy():
     assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
     gels = torch.linalg.lstsq(At, Bt).solution.cpu().numpy()
     assert not np.abs(gels - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def _aquaplanet(path, device, n=16, m=8, l=4):
+    """run/aquaplanet cut to n x m x l (ocean, atmosphere and sea ice) in
+    path, no state file, as a CoupledModel on device: the bundle's BGS
+    ocean, coupled scheme C/F, FGMRES 1e-3."""
+    import shutil
+    from iemic_tpu_torch.config import read_xml, write_xml
+    from iemic_tpu_torch.models.coupled import build_coupled_from_files
+    repo = os.path.dirname(DATA)
+    path = str(path)
+    if not os.path.exists(path):
+        shutil.copytree(os.path.join(repo, "run", "aquaplanet"), path)
+        for name in ("ocean_params.xml", "atmosphere_params.xml",
+                     "seaice_params.xml"):
+            p = read_xml(os.path.join(path, name))
+            t = p.sublist("THCM") if name.startswith("ocean") else p
+            t.set("Global Grid-Size n", n)
+            t.set("Global Grid-Size m", m)
+            if name.startswith("ocean"):
+                t.set("Global Grid-Size l", l)
+                p.set("Save state", False)
+            write_xml(p, os.path.join(path, name))
+    return build_coupled_from_files(path, device=device)
+
+
+def _coupled_pieces(c, seed=0):
+    """F, J v and the six coupling blocks at a seeded small state of a
+    coupled model, and the first Newton solve from rest (J x = -F), as
+    numpy."""
+    rng = np.random.default_rng(seed)
+    x = 0.05 * rng.standard_normal(c.dim)
+    c.set_state(interop.tensor(x, c.device))
+    c.compute_rhs()
+    c.compute_jacobian()
+    out = {"F": c.get_rhs()}
+    v = interop.tensor(rng.standard_normal(c.dim), c.device)
+    out["Jv"] = c.apply_matrix(v)
+    parts = c.split(v)
+    for i in range(3):
+        for j in range(3):
+            if i != j:
+                out[f"C{i}{j}"] = c.coupling_apply(i, j, parts[j])
+    c.set_state(torch.zeros_like(c.get_state()))
+    c.compute_rhs()
+    c.compute_jacobian()
+    # the pressure modes the coupled solve deflates from the ocean block
+    q = c.ocean._get_deflator()
+    out["null modes"] = q if q is not None else c.get_state()[:0]
+    out["x"] = c.solve(-c.get_rhs())
+    return {k: t.cpu().numpy() for k, t in out.items()}, \
+        (c.solve_iters, c.solve_relres, c.solve_tol)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_coupled_on_card_matches_cpu(tmp_path):
+    """The shrunk aquaplanet (16x8x4, BGS ocean): F, the coupled matvec
+    and the six coupling blocks on the card against the CPU to 1e-10; the
+    first Newton solve from rest reaches its tolerance on both, in
+    iterations within 2, and the two solutions agree to that tolerance:
+    the BGS sweep's inner Krylov solves stop on tolerances, and rounding
+    parts the card's and the CPU's sweeps there (measured on an H100: the
+    solutions part by 2.0e-5 of their largest entry)."""
+    got, (its_card, rel_card, tol) = _coupled_pieces(
+        _aquaplanet(tmp_path / "a", "cuda"))
+    ref, (its_cpu, rel_cpu, _) = _coupled_pieces(
+        _aquaplanet(tmp_path / "a", "cpu"))
+    assert got["null modes"].shape == ref["null modes"].shape
+    for k in ref:
+        err = np.abs(got[k] - ref[k]).max(initial=0.0) / max(
+            np.abs(ref[k]).max(initial=0.0), 1e-300)
+        assert err <= (tol if k == "x" else 1e-10), (k, err)
+    assert max(rel_card, rel_cpu) <= tol
+    assert abs(its_card - its_cpu) <= 2, (its_card, its_cpu)

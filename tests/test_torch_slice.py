@@ -147,7 +147,15 @@ def test_port_never_imports_jax():
                "iemic_tpu_torch.lyapunov.model", "iemic_tpu_torch.post",
                "iemic_tpu_torch.post.masks",
                "iemic_tpu_torch.main.run_topo",
-               "iemic_tpu_torch.main.run_lyapunov"] + [
+               "iemic_tpu_torch.main.run_lyapunov",
+               "iemic_tpu_torch.models.atmosphere",
+               "iemic_tpu_torch.models.seaice",
+               "iemic_tpu_torch.models.coupled",
+               "iemic_tpu_torch.main.run_coupled",
+               "iemic_tpu_torch.main.time_coupled",
+               "iemic_tpu_torch.post.readers",
+               "iemic_tpu_torch.post.transports",
+               "iemic_tpu_torch.post.plotting", "chip_smoke"] + [
         "iemic_tpu_torch.solvers." + name for name in (
             "bgs", "eigen", "factory", "fgmres", "idr", "mg",
             "preconditioner", "rearranger", "saddlepoint")] + [
