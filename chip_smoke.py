@@ -116,13 +116,31 @@ Phases, each printing its own line:
                 and seconds per step, status 0.  The coupled path is f64
                 and launches no kernel: the phase's launch count is
                 printed and must be 0
+ 13. parallel — the domain-decomposed ocean (iemic_tpu_torch/parallel,
+                main/multichip.py) on the masked global 96x38x12 grid at
+                the effort phase's state.  (a) One rank over NCCL: the
+                sharded f64 matvec against Ocean.apply_matrix to 1e-12,
+                the sharded Double solve at 1e-2 (MV, relres, true relres,
+                seconds) beside the serial Ocean.solve in Double at 1e-2,
+                the sharded Mixed solve at 2e-2.  (b) Four ranks spawned
+                on the one card over gloo: on the rank grids 1x4
+                (decomp2d's) and 2x2 the gathered sharded matvec against
+                the serial product to 1e-12, per rank the seconds and
+                bytes of a halo exchange and the seconds of a sharded
+                matvec; then the dry run's two stages at 96x38x12 (stage 2
+                fails the run if it misses 2e-2), per rank MV, outer
+                iterations, true relres and seconds, and stage 1's Newton
+                update held to (a)'s within the two solves' tolerances
+                (|J (z4 - z1)| <= 2e-2 |F|).  (c) The dry run at its own
+                8x8x3 grid on four ranks.  The phase's launches of the
+                stencil kernel, the ranks' included, are printed (0)
 
 The line before the last is the kernels' JSON record: ms, plain_ms and
 bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
 on the effort phase's periodic 96x38x12 Jacobian, the main path's own
 operator, whose zero coefficients CSR leaves out (the effort line gives
 every entry point's time on it beside cuSPARSE); launches of the main,
-transient, topo, lyapunov and coupled phases.  The last line is {"ok": true,
+transient, topo, lyapunov, coupled and parallel phases.  The last line is {"ok": true,
 "device": {...}}.
 Any failed check raises (exit code 1), and a run that outlasts
 WATCHDOG_S seconds prints its stack and exits with code 1.
@@ -352,6 +370,17 @@ COUPLED_TIME_STEPS = 2
 # coupled FGMRES iterations of the solve the per-iteration split is
 # taken from
 COUPLED_SPLIT_ITERS = 10
+# the parallel phase: the domain-decomposed ocean on the masked global
+# grid (GLOBAL_THCM, the dry run's model at that grid) at the effort
+# phase's state.  (a) one rank over NCCL; (b) PARALLEL_RANKS ranks on the
+# one card over gloo (NCCL takes one rank per card), the sharded matvec
+# on each rank grid of PARALLEL_SHAPES (decomp2d's and an explicit 2x2)
+# held to the serial product to PARALLEL_MATVEC_TOL, then the dry run's
+# two stages there; (c) the dry run at its own small grid
+PARALLEL_GRID = (96, 38, 12)
+PARALLEL_RANKS = 4
+PARALLEL_SHAPES = [(1, 4), (2, 2)]
+PARALLEL_MATVEC_TOL = 1e-12
 
 
 def card() -> str:
@@ -2428,6 +2457,170 @@ def phase_coupled(hopper, card_line: str) -> dict:
     return by_entry
 
 
+def _parallel_one_rank(multichip, card_line: str):
+    """(a): one NCCL rank on the card, a 1x1 Domain of the masked global
+    model at the effort phase's state.  The sharded ops are made before
+    any Jacobian, so the Double solve deflates nothing, as the dry run's
+    stage 1; the Mixed solve after it, as stage 2.  Returns F, the
+    Jacobian and the Double solve's update, for (b)."""
+    import torch.distributed as dist
+    from iemic_tpu_torch.models.ocean import Ocean
+    from iemic_tpu_torch.parallel import Domain, make_sharded_ops
+    from iemic_tpu_torch.parallel.halo import make_sharded_solve
+    from iemic_tpu_torch.parallel.multihost import initialize_environment
+
+    tol1, tol2 = multichip.STAGE1_TOL, multichip.STAGE2_TOL
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_environment("nccl", init_method=f"file://{tmp}/store",
+                               world_size=1, rank=0, timeout_s=300.0)
+        dom = Domain(*PARALLEL_GRID, periodic=True, device="cuda")
+        o = Ocean({"THCM": dict(GLOBAL_THCM)}, solver_params={
+            "Preconditioning": "BGS", "Precision": "Double",
+            "FGMRES tolerance": tol1,
+            "FGMRES iterations": multichip.STAGE1_ITERS},
+            data_dir=os.path.join(REPO, "data"), device=dom.device)
+        ops = make_sharded_ops(o, dom)
+        x = dom.shard_state(o.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F = ops["rhs"](x, o.par)
+        An = ops["jac"](x, o.par)
+        torch.cuda.synchronize()
+        fsec = time.perf_counter() - t0
+        o.compute_rhs()
+        o.compute_jacobian()
+        y = ops["matvec"](An, -F)
+        ref = o.apply_matrix(-o.rhs)
+        gap = float((y - ref).abs().max() / ref.abs().max())
+        fgap = float((F - o.rhs).abs().max() / o.rhs.abs().max())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ops["solve"](An, -F, tol1, multichip.STAGE1_ITERS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        true = float(torch.linalg.norm(F + ops["matvec"](An, res.x))
+                     / torch.linalg.norm(F))
+        t0 = time.perf_counter()
+        zs = o.solve(-o.rhs)
+        torch.cuda.synchronize()
+        ssec = time.perf_counter() - t0
+        strue = float(torch.linalg.norm(o.rhs + o.apply_matrix(zs))
+                      / torch.linalg.norm(o.rhs))
+        mixed = make_sharded_solve(o, dom, precision="Mixed",
+                                   apply_opts=multichip.STAGE2_APPLY,
+                                   inner_tol=multichip.STAGE2_INNER_TOL)
+        t0 = time.perf_counter()
+        res2 = mixed(dom.shard_stencil(o.jac), dom.shard_state(-o.rhs), tol2,
+                     multichip.STAGE2_ITERS)
+        torch.cuda.synchronize()
+        msec = time.perf_counter() - t0
+        backend = dom.backend
+        dist.destroy_process_group()
+    print(f"parallel (a) one rank over {backend}, 1x1 Domain of the masked "
+          f"global {PARALLEL_GRID} at the effort state: residual and "
+          f"Jacobian {fsec:.3f} s, F gap {fgap:.3e}, "
+          f"sharded f64 matvec against Ocean.apply_matrix {gap:.3e} "
+          f"(limit {PARALLEL_MATVEC_TOL:g}) [{card_line}]", flush=True)
+    print(f"parallel (a) sharded Double solve (tol {tol1:g}): {res.mv} MV, "
+          f"relres {res.relres:.3e}, true relres {true:.3e}, {sec:.3f} s; "
+          f"serial Ocean.solve Double (row-scaled, default BGS): "
+          f"{o.solve_iters} MV, relres {o.solve_relres:.3e}, unscaled true "
+          f"relres {strue:.3e}, {ssec:.3f} s [{card_line}]", flush=True)
+    print(f"parallel (a) sharded Mixed solve (tol {tol2:g}): {res2.mv} MV, "
+          f"{res2.outer} outer, relres {res2.relres:.3e}, {msec:.3f} s "
+          f"[{card_line}]", flush=True)
+    if not gap <= PARALLEL_MATVEC_TOL:
+        raise AssertionError(f"parallel (a): sharded matvec gap {gap:.3e}")
+    if not (res.relres <= tol1 and true <= 2 * tol1
+            and res2.relres <= tol2):
+        raise AssertionError(f"parallel (a): a sharded solve missed its "
+                             f"tolerance ({true:.3e}, {res2.relres:.3e})")
+    return -F, o.apply_matrix, res.x
+
+
+def phase_parallel(hopper, card_line: str) -> dict:
+    """(a) one rank over NCCL; (b) PARALLEL_RANKS ranks on the one card
+    over gloo: the sharded matvec on each of PARALLEL_SHAPES against the
+    serial product, timed per rank, then the dry run's two stages at
+    PARALLEL_GRID, its Newton update held to (a)'s; (c) the dry run at its
+    own grid.  Returns the kernel launches of the phase, the ranks'
+    included, by entry point: none, as the sharded path contracts its
+    windows in plain PyTorch (the JAX package's reaches no Pallas
+    kernel)."""
+    from iemic_tpu_torch.main import multichip
+    from iemic_tpu_torch.parallel import decomp2d
+
+    if multichip.global_thcm(*PARALLEL_GRID) != GLOBAL_THCM:
+        raise AssertionError("the dry run's global model is not the effort "
+                             "phase's")
+    if decomp2d(PARALLEL_RANKS, *PARALLEL_GRID[:2]) != PARALLEL_SHAPES[0]:
+        raise AssertionError("decomp2d's rank grid changed")
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    b, apply_J, z1 = _parallel_one_rank(multichip, card_line)
+    print(f"parallel (a) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    jobs = [("ops", dict(thcm=GLOBAL_THCM, shape=shape, timed=True))
+            for shape in PARALLEL_SHAPES]
+    jobs += [("dryrun", {"grid": PARALLEL_GRID}), ("launches", {})]
+    out = multichip.run_ranks(PARALLEL_RANKS, jobs, device="cuda",
+                              backend="gloo", timeout_s=300.0)
+    wall = time.perf_counter() - t0
+    print(f"parallel (b) {PARALLEL_RANKS} ranks over gloo on one card, "
+          f"{wall:.1f} s [{card_line}]", flush=True)
+    for k, shape in enumerate(PARALLEL_SHAPES):
+        for rank, r in enumerate(out):
+            ops = r[k]
+            print(f"parallel (b) {shape[0]}x{shape[1]} rank {rank} "
+                  f"({ops['ry']},{ops['rx']}): gathered matvec gap "
+                  f"{ops['gap']:.3e}, halo exchange "
+                  f"{ops['halo_s'] * 1e3:.3f} ms of {ops['halo_bytes']} "
+                  f"bytes sent, sharded matvec {ops['matvec_s'] * 1e3:.3f} ms",
+                  flush=True)
+            if not ops["gap"] <= PARALLEL_MATVEC_TOL:
+                raise AssertionError(f"parallel (b) {shape}: sharded matvec "
+                                     f"gap {ops['gap']:.3e}")
+    ranks = [dict(r[-2], launches=r[-1]) for r in out]
+    multichip.print_ranks(ranks, "parallel (b) dry run")
+    z4 = torch.as_tensor(ranks[0]["update"], device=z1.device)
+    dz = apply_J(z4 - z1)
+    rgap = float(torch.linalg.norm(dz) / torch.linalg.norm(b))
+    zgap = float(torch.linalg.norm(z4 - z1) / torch.linalg.norm(z1))
+    print(f"parallel (b) stage 1 update against (a)'s: |J (z4 - z1)| / |F| "
+          f"{rgap:.3e} (limit {2 * multichip.STAGE1_TOL:g}, two solves "
+          f"within {multichip.STAGE1_TOL:g}), |z4 - z1| / |z1| {zgap:.3e}",
+          flush=True)
+    if not rgap <= 2 * multichip.STAGE1_TOL:
+        raise AssertionError(f"parallel (b): the four-rank Newton update "
+                             f"is {rgap:.3e} from the one-rank update")
+
+    # two NCCL ranks on the one card: Domain must refuse them
+    t0 = time.perf_counter()
+    try:
+        multichip.run_ranks(2, [("halo", dict(
+            x=np.zeros((6, 3, 8, 8)), shape=None, periodic=True))],
+            device="cuda", backend="nccl", timeout_s=60.0)
+    except torch.multiprocessing.ProcessRaisedException as e:
+        if "NCCL takes one rank per card" not in str(e):
+            raise
+        print(f"parallel (b) two NCCL ranks on one card refused by Domain "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    else:
+        raise AssertionError("parallel (b): two NCCL ranks on one card "
+                             "were not refused")
+
+    t0 = time.perf_counter()
+    small = multichip.dryrun_multichip(PARALLEL_RANKS, device="cuda")
+    print(f"parallel (c) {time.perf_counter() - t0:.1f} s [{card_line}]",
+          flush=True)
+    launches = dict(hopper.LAUNCHES_BY_ENTRY)
+    for r in ranks + small:
+        for entry, n in r["launches"].items():
+            launches[entry] += n
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2492,6 +2685,11 @@ def main() -> int:
     print(f"coupled phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"coupled phase launches {sum(coupled_launches.values())} "
           f"{coupled_launches}", flush=True)
+    t0 = time.perf_counter()
+    parallel_launches = phase_parallel(hopper, card_line)
+    print(f"parallel phase {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"parallel phase launches {sum(parallel_launches.values())} "
+          f"{parallel_launches}", flush=True)
 
     print(f"smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [dict(
@@ -2500,7 +2698,7 @@ def main() -> int:
         replaces="iemic_tpu/ops/stencil_pallas.py:84",
         launches=sum(phase[entry] for phase in (
             main_launches, transient_launches, topo_launches,
-            lyapunov_launches, coupled_launches)),
+            lyapunov_launches, coupled_launches, parallel_launches)),
         library_ms=jacobian_library_ms, **rec[entry])
         for entry in hopper.ENTRIES]}))
     faulthandler.cancel_dump_traceback_later()

@@ -11,6 +11,11 @@ from one device-to-host copy per iteration.
   * :func:`fgmres` — the same on tensors of any shape
   * :func:`fgmres_host` — modified Gram-Schmidt variant, used by the
     outer f64 GMRES-IR tail of the mixed-precision solve
+
+Both take ``reduce``, for vectors split over the ranks of a domain
+(``parallel.halo``): every inner product and norm is then the local one
+summed over the ranks by ``reduce`` (a sum of tensors, in place or not),
+and every rank runs the same iteration on its block.
 """
 
 from __future__ import annotations
@@ -38,9 +43,22 @@ def _backsub(H: np.ndarray, g: np.ndarray, j: int) -> np.ndarray:
     return y
 
 
+def _sum(reduce, t: torch.Tensor) -> torch.Tensor:
+    return t if reduce is None else reduce(t)
+
+
+def _norms(reduce, *vs: torch.Tensor) -> torch.Tensor:
+    """The 2-norms of vs, as one tensor: of the whole vectors, whose
+    local dot products reduce sums over the ranks."""
+    if reduce is None:
+        return torch.stack([torch.linalg.norm(v) for v in vs])
+    return torch.sqrt(reduce(torch.stack([torch.dot(v, v) for v in vs])))
+
+
 def fgmres_flat(matvec: Callable, prec: Callable, b: torch.Tensor,
                 x0: torch.Tensor, tol: float, maxiter: int,
-                stall_limit: int = 0) -> FGMRESResult:
+                stall_limit: int = 0,
+                reduce: Callable | None = None) -> FGMRESResult:
     """Right-preconditioned FGMRES on flat vectors, in b's dtype.
 
     stall_limit > 0 additionally stops when the (monotone) implicit
@@ -52,8 +70,7 @@ def fgmres_flat(matvec: Callable, prec: Callable, b: torch.Tensor,
     kw = dict(dtype=b.dtype, device=b.device)
 
     r0 = b - matvec(x0)
-    beta, bnorm = (float(v) for v in torch.stack(
-        [torch.linalg.norm(r0), torch.linalg.norm(b)]).cpu())
+    beta, bnorm = (float(v) for v in _norms(reduce, r0, b).cpu())
     beta, bnorm = ndt(beta), ndt(bnorm)
     target = ndt(tol) * (bnorm if bnorm > 0.0 else ndt(1.0))
 
@@ -75,11 +92,11 @@ def fgmres_flat(matvec: Callable, prec: Callable, b: torch.Tensor,
         Z[j] = z
         # CGS2: two classical Gram-Schmidt passes against the basis
         Vj = V[:j + 1]
-        h1 = Vj @ w
+        h1 = _sum(reduce, Vj @ w)
         w = w - Vj.T @ h1
-        h2 = Vj @ w
+        h2 = _sum(reduce, Vj @ w)
         w = w - Vj.T @ h2
-        hj1 = torch.linalg.norm(w)
+        hj1 = _norms(reduce, w)[0]
         V[j + 1] = torch.where(hj1 > 0.0, w / hj1, w)
         col = torch.cat([h1 + h2, hj1[None]]).cpu().numpy()
         Hcol = np.zeros(maxiter + 1, ndt)
@@ -113,14 +130,15 @@ def fgmres_flat(matvec: Callable, prec: Callable, b: torch.Tensor,
 
 def fgmres_host(matvec: Callable, b: torch.Tensor, *,
                 prec: Callable | None = None, tol: float = 1e-8,
-                maxiter: int = 100) -> tuple[torch.Tensor, FGMRESResult]:
+                maxiter: int = 100, reduce: Callable | None = None
+                ) -> tuple[torch.Tensor, FGMRESResult]:
     """FGMRES with modified Gram-Schmidt for operators that are host
     orchestrations themselves (the GMRES-IR outer loop); f64 on b's
     device.  Returns (x, FGMRESResult)."""
     b = b.reshape(-1)
     N = b.shape[0]
     kw = dict(dtype=b.dtype, device=b.device)
-    bnorm = float(torch.linalg.norm(b))
+    bnorm = float(_norms(reduce, b)[0])
     target = tol * (bnorm if bnorm > 0 else 1.0)
     if prec is None:
         prec = lambda v: v  # noqa: E731
@@ -145,9 +163,9 @@ def fgmres_host(matvec: Callable, b: torch.Tensor, *,
         w = matvec(z).reshape(-1)
         Z[j] = z
         for i in range(j + 1):
-            H[i, j] = float(V[i] @ w)
+            H[i, j] = float(_sum(reduce, V[i] @ w))
             w = w - H[i, j] * V[i]
-        H[j + 1, j] = float(torch.linalg.norm(w))
+        H[j + 1, j] = float(_norms(reduce, w)[0])
         if H[j + 1, j] > 0:
             V[j + 1] = w / H[j + 1, j]
         for i in range(j):

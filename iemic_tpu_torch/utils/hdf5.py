@@ -24,11 +24,21 @@ import shutil
 import numpy as np
 
 
+def _primary() -> bool:
+    """Checkpoint writes happen on process 0 only (the reference's
+    rank-0 EpetraExt-HDF5 writes; loads read the same file on every
+    host)."""
+    from ..parallel.multihost import is_primary
+    return is_primary()
+
+
 def save_state(filename: str, state_flat: np.ndarray,
                parameters: dict[str, float],
                grid_meta: dict | None = None,
                extras: dict[str, np.ndarray] | None = None,
                backup: bool = True) -> None:
+    if not _primary():
+        return
     if backup and os.path.exists(filename):
         shutil.copyfile(filename, filename + ".bak")
 
@@ -68,6 +78,8 @@ def load_state(filename: str):
 def save_eigenvectors(filename: str, alphas, betas, vectors,
                       grid_meta: dict | None = None) -> None:
     """Eigen data layout read by matlab/readhdf5.m:62-90."""
+    if not _primary():
+        return
     import h5py
     with h5py.File(filename, "w") as f:
         md = f.create_group("MetaData")

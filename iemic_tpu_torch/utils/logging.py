@@ -126,15 +126,24 @@ def print_profile(path: str | None = None) -> str:
     return text
 
 
+def _primary() -> bool:
+    """cdata/tdata writes happen on process 0 only, like the
+    reference's rank-0 cdata.txt (GlobalDefinitions.C:88+)."""
+    from ..parallel.multihost import is_primary
+    return is_primary()
+
+
 def set_cdata_file(path: str | None) -> None:
     global _CDATA_FILE
     _CDATA_FILE = path
-    if path:
+    if path and _primary():
         open(path, "w").close()
 
 
 def write_cdata(line: str) -> None:
     """Append a line to the continuation data table (cdata.txt)."""
+    if not _primary():
+        return
     if _CDATA_FILE:
         with open(_CDATA_FILE, "a") as f:
             f.write(line + "\n")

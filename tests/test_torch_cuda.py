@@ -474,3 +474,64 @@ def test_coupled_on_card_matches_cpu(tmp_path):
         assert err <= (tol if k == "x" else 1e-10), (k, err)
     assert max(rel_card, rel_cpu) <= tol
     assert abs(its_card - its_cpu) <= 2, (its_card, its_cpu)
+
+
+def _masked_8x8x4(device, solver=None, thcm=None):
+    """tests/test_parallel.py's masked 8x8x4 fixture on device, at its
+    state of the shallow solve (F and J computed)."""
+    from iemic_tpu_torch.models.ocean import landmask
+    base = {"Global Grid-Size n": 8, "Global Grid-Size m": 8,
+            "Global Grid-Size l": 4, "Periodic": True,
+            "Starting Parameters": {"Combined Forcing": 0.3,
+                                    "Temperature Forcing": 10.0,
+                                    "Wind Forcing": 1.0}}
+    o = Ocean({"THCM": dict(base, **(thcm or {}))}, solver_params=solver,
+              device=device)
+    landm = o.landm.copy()
+    landm[1:, 3:5, 3:6] = 1
+    o.set_land_mask(landmask.finalize_mask(landm, o.grid, True),
+                    finalized=True)
+    rng = np.random.default_rng(11)
+    o.set_state(o._tensor(0.01 * rng.standard_normal((6, 4, 8, 8))))
+    o.compute_rhs()
+    o.compute_jacobian()
+    return o
+
+
+@pytest.mark.cuda
+@needs_card
+def test_one_nccl_rank_matches_serial_on_card(tmp_path):
+    """A one-rank NCCL Domain on the card: its sharded matvec equals the
+    serial port's Ocean.apply_matrix to 1e-12, and its shallow Double
+    solve (tol 1e-2, 120 iterations) is the serial Ocean.solve with the
+    same preconditioner (BGS, ATS multigrid, 30 saddle iterations to 1e-6,
+    no row scaling): the same MV, relres and iterate."""
+    import torch.distributed as dist
+    from iemic_tpu_torch.parallel import Domain, make_sharded_ops
+    from iemic_tpu_torch.parallel.multihost import initialize_environment
+
+    solver = {"Preconditioning": "BGS", "Precision": "Double",
+              "FGMRES tolerance": 1e-2, "FGMRES iterations": 120,
+              "Preconditioner": {"Saddlepoint iterations": 30,
+                                 "Saddlepoint tolerance": 1e-6,
+                                 "ATS Precond": "MG"}}
+    serial = _masked_8x8x4("cuda", solver, {"Scaling": "None"})
+    z = serial.solve(-serial.rhs)
+    initialize_environment("nccl", init_method=f"file://{tmp_path}/store",
+                           world_size=1, rank=0, timeout_s=120.0)
+    try:
+        dom = Domain(8, 8, 4, periodic=True, device="cuda")
+        o = _masked_8x8x4(dom.device)
+        ops = make_sharded_ops(o, dom)
+        v = -o.rhs
+        y = ops["matvec"](dom.shard_stencil(o.jac), dom.shard_state(v))
+        ref = o.apply_matrix(v)
+        assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-12
+        from iemic_tpu_torch.parallel.halo import make_sharded_solve
+        res = make_sharded_solve(o, dom)(
+            dom.shard_stencil(o.jac), dom.shard_state(-o.rhs), 1e-2, 120)
+    finally:
+        dist.destroy_process_group()
+    assert res.mv == serial.solve_iters
+    assert res.relres == pytest.approx(serial.solve_relres, rel=1e-10)
+    torch.testing.assert_close(res.x, z, rtol=1e-10, atol=1e-10)
