@@ -119,21 +119,35 @@ Phases, each printing its own line:
  13. parallel — the domain-decomposed ocean (iemic_tpu_torch/parallel,
                 main/multichip.py) on the masked global 96x38x12 grid at
                 the effort phase's state.  (a) One rank over NCCL: the
-                sharded f64 matvec against Ocean.apply_matrix to 1e-12,
-                the sharded Double solve at 1e-2 (MV, relres, true relres,
-                seconds) beside the serial Ocean.solve in Double at 1e-2,
-                the sharded Mixed solve at 2e-2.  (b) Four ranks spawned
-                on the one card over gloo: on the rank grids 1x4
-                (decomp2d's) and 2x2 the gathered sharded matvec against
-                the serial product to 1e-12, per rank the seconds and
-                bytes of a halo exchange and the seconds of a sharded
-                matvec; then the dry run's two stages at 96x38x12 (stage 2
-                fails the run if it misses 2e-2), per rank MV, outer
-                iterations, true relres and seconds, and stage 1's Newton
-                update held to (a)'s within the two solves' tolerances
-                (|J (z4 - z1)| <= 2e-2 |F|).  (c) The dry run at its own
-                8x8x3 grid on four ranks.  The phase's launches of the
-                stencil kernel, the ranks' included, are printed (0)
+                partitioned F and An against Ocean._rhs/_jacobian to
+                1e-13 (at the effort state and a random one) and their
+                seconds, the sharded f64 matvec against
+                Ocean.apply_matrix to 1e-12, the sharded Double solve at
+                1e-2 (MV, relres, true relres, seconds) beside the serial
+                Ocean.solve in Double at 1e-2, the sharded Mixed solve at
+                2e-2; the dry run's stage 3 at 96x38x12 (one continuation
+                step of a ShardedOcean from rest at Combined Forcing 0 on
+                the BGS/Double solve at 5e-2, at most three Newton
+                iterations) held to the serial Continuation on an Ocean
+                with the same solve, par and state to 1e-12.  (b) Four
+                ranks spawned on the one card over gloo: on the rank grids
+                1x4 (decomp2d's) and 2x2 the gathered sharded matvec
+                against the serial product to 1e-12, per rank the seconds
+                and bytes of a 1-deep halo exchange and the seconds of a
+                sharded matvec; the gathered partitioned F and An against
+                the serial ones to 1e-13, per rank the seconds of the
+                partitioned residual and Jacobian and of a 2-deep
+                exchange with its bytes; then the dry run's three stages
+                at 96x38x12 (stage 2 fails the run if it misses 2e-2),
+                per rank MV, outer iterations, true relres and seconds,
+                stage 1's Newton update held to (a)'s within the two
+                solves' tolerances (|J (z4 - z1)| <= 2e-2 |F|), stage 3's
+                step on 2x2 (every solve's MV, relres and seconds per
+                rank) held to (a)'s step within the JAX test's bounds (par
+                1e-5, state rtol 1e-3 atol 1e-6).  (c) The dry run at its
+                own 8x8x3 grid (stage 3 on the 8x8x4 box) on four ranks.
+                The phase's launches of the stencil kernel, the ranks'
+                included, are printed (0)
 
 The line before the last is the kernels' JSON record: ms, plain_ms and
 bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
@@ -376,11 +390,26 @@ COUPLED_SPLIT_ITERS = 10
 # one card over gloo (NCCL takes one rank per card), the sharded matvec
 # on each rank grid of PARALLEL_SHAPES (decomp2d's and an explicit 2x2)
 # held to the serial product to PARALLEL_MATVEC_TOL, then the dry run's
-# two stages there; (c) the dry run at its own small grid
+# three stages there; (c) the dry run at its own small grid
 PARALLEL_GRID = (96, 38, 12)
 PARALLEL_RANKS = 4
 PARALLEL_SHAPES = [(1, 4), (2, 2)]
 PARALLEL_MATVEC_TOL = 1e-12
+# the partitioned F and An against the serial ones, relative to their
+# largest entries, at the effort state and at a random one (seed
+# PARALLEL_SEED, amplitude 0.01)
+PARALLEL_ASSEMBLY_TOL = 1e-13
+PARALLEL_SEED = 0
+# the one-rank continuation step (multichip's stage 3 at PARALLEL_GRID)
+# against the serial Continuation on Ocean, par and state
+PARALLEL_STEP_TOL = 1e-12
+# the four-rank step against the one-rank step: the bounds of the JAX
+# package's tests/test_parallel.py:303-306
+PARALLEL_PAR_TOL, PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, 1e-3, 1e-6
+# the serial Ocean whose BGS/Double solve is the sharded one's (bgs.apply's
+# inner budget, ATS multigrid, no row scaling)
+PARALLEL_SERIAL_PREC = {"Saddlepoint iterations": 30,
+                        "Saddlepoint tolerance": 1e-6, "ATS Precond": "MG"}
 
 
 def card() -> str:
@@ -2457,13 +2486,40 @@ def phase_coupled(hopper, card_line: str) -> dict:
     return by_entry
 
 
+def _assembly_gaps(ops, o, x) -> tuple[float, float]:
+    """The relative gaps of make_sharded_ops' partitioned F and An (one
+    rank) to Ocean._rhs and Ocean._jacobian at x."""
+    F, An = ops["rhs"](x, o.par), ops["jac"](x, o.par)
+    Fs, As = o._rhs(x, o.par), o._jacobian(x, o.par)
+    return (float((F - Fs).abs().max() / Fs.abs().max()),
+            float((An - As).abs().max() / As.abs().max()))
+
+
+def _print_step(tag: str, step: dict, card_line: str) -> None:
+    """A continuation step's solves and its seconds per Newton
+    iteration."""
+    solves = " ".join(f"{mv} MV {rr:.3e} {sec:.3f} s"
+                      for mv, rr, sec in step["solves"])
+    newton = max(step["newton"], 1)
+    print(f"{tag}: status {step['status']}, {step['steps']} step, "
+          f"{step['newton']} Newton iterations, par {step['par']:.10e}, "
+          f"{step['seconds']:.3f} s ({step['seconds'] / newton:.3f} s per "
+          f"Newton iteration); residual {np.mean(step['rhs_s']):.3f} s, "
+          f"Jacobian {np.mean(step['jac_s']):.3f} s per call; solves "
+          f"(MV, relres, s): {solves} [{card_line}]", flush=True)
+
+
 def _parallel_one_rank(multichip, card_line: str):
     """(a): one NCCL rank on the card, a 1x1 Domain of the masked global
     model at the effort phase's state.  The sharded ops are made before
     any Jacobian, so the Double solve deflates nothing, as the dry run's
-    stage 1; the Mixed solve after it, as stage 2.  Returns F, the
-    Jacobian and the Double solve's update, for (b)."""
+    stage 1; the Mixed solve after it, as stage 2.  The partitioned F and
+    An against the serial ones there and at a random state; the dry run's
+    stage 3 at PARALLEL_GRID (a ShardedOcean continuation step) against
+    the serial Continuation on an Ocean with the same solve.  Returns F,
+    the Jacobian, the Double solve's update and the step, for (b)."""
     import torch.distributed as dist
+    from iemic_tpu_torch.continuation import Continuation
     from iemic_tpu_torch.models.ocean import Ocean
     from iemic_tpu_torch.parallel import Domain, make_sharded_ops
     from iemic_tpu_torch.parallel.halo import make_sharded_solve
@@ -2487,12 +2543,19 @@ def _parallel_one_rank(multichip, card_line: str):
         An = ops["jac"](x, o.par)
         torch.cuda.synchronize()
         fsec = time.perf_counter() - t0
+        xr = o._tensor(0.01 * np.random.default_rng(PARALLEL_SEED)
+                       .standard_normal(tuple(o.state.shape)))
+        gaps = {"effort": _assembly_gaps(ops, o, x),
+                "random": _assembly_gaps(ops, o, xr)}
+        rhs_s = multichip._seconds(lambda: ops["rhs"](xr, o.par), dom.device,
+                                   3)
+        jac_s = multichip._seconds(lambda: ops["jac"](xr, o.par), dom.device,
+                                   3)
         o.compute_rhs()
         o.compute_jacobian()
         y = ops["matvec"](An, -F)
         ref = o.apply_matrix(-o.rhs)
         gap = float((y - ref).abs().max() / ref.abs().max())
-        fgap = float((F - o.rhs).abs().max() / o.rhs.abs().max())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = ops["solve"](An, -F, tol1, multichip.STAGE1_ITERS)
@@ -2515,12 +2578,33 @@ def _parallel_one_rank(multichip, card_line: str):
         torch.cuda.synchronize()
         msec = time.perf_counter() - t0
         backend = dom.backend
+
+        # the dry run's stage 3 at PARALLEL_GRID, and the serial step
+        thcm3, solver3 = multichip.stage3_config(PARALLEL_GRID, (1, 1))
+        step = multichip.sharded_continuation(dom, thcm3, solver3,
+                                              multichip.STAGE3_CONT)
+        so = Ocean({"THCM": dict(thcm3, Scaling="None")},
+                   solver_params=dict(solver3,
+                                      Preconditioner=PARALLEL_SERIAL_PREC),
+                   data_dir=os.path.join(REPO, "data"), device=dom.device)
+        t0 = time.perf_counter()
+        sres = Continuation(so, dict(multichip.STAGE3_CONT)).run()
+        torch.cuda.synchronize()
+        step_serial_s = time.perf_counter() - t0
+        spar = so.get_par(multichip.STAGE3_CONT["continuation parameter"])
+        sx = so.state.cpu().numpy()
         dist.destroy_process_group()
     print(f"parallel (a) one rank over {backend}, 1x1 Domain of the masked "
           f"global {PARALLEL_GRID} at the effort state: residual and "
-          f"Jacobian {fsec:.3f} s, F gap {fgap:.3e}, "
-          f"sharded f64 matvec against Ocean.apply_matrix {gap:.3e} "
-          f"(limit {PARALLEL_MATVEC_TOL:g}) [{card_line}]", flush=True)
+          f"Jacobian {fsec:.3f} s, sharded f64 matvec against "
+          f"Ocean.apply_matrix {gap:.3e} (limit {PARALLEL_MATVEC_TOL:g}) "
+          f"[{card_line}]", flush=True)
+    for name, (fg, jg) in gaps.items():
+        print(f"parallel (a) partitioned assembly at the {name} state: F "
+              f"gap {fg:.3e}, An gap {jg:.3e} to Ocean._rhs/_jacobian "
+              f"(limit {PARALLEL_ASSEMBLY_TOL:g})", flush=True)
+    print(f"parallel (a) partitioned residual {rhs_s:.4f} s, Jacobian "
+          f"{jac_s:.4f} s at the random state [{card_line}]", flush=True)
     print(f"parallel (a) sharded Double solve (tol {tol1:g}): {res.mv} MV, "
           f"relres {res.relres:.3e}, true relres {true:.3e}, {sec:.3f} s; "
           f"serial Ocean.solve Double (row-scaled, default BGS): "
@@ -2529,21 +2613,39 @@ def _parallel_one_rank(multichip, card_line: str):
     print(f"parallel (a) sharded Mixed solve (tol {tol2:g}): {res2.mv} MV, "
           f"{res2.outer} outer, relres {res2.relres:.3e}, {msec:.3f} s "
           f"[{card_line}]", flush=True)
+    _print_step("parallel (a) ShardedOcean continuation step", step,
+                card_line)
+    par_gap = abs(step["par"] - spar)
+    state_gap = float(np.abs(step["state"] - sx).max()
+                      / max(np.abs(sx).max(), 1e-300))
+    print(f"parallel (a) serial Continuation on Ocean: status "
+          f"{sres.status}, {sres.sum_newton_iters} Newton iterations, "
+          f"{step_serial_s:.3f} s, solves (MV, relres) {so.solve_log}; "
+          f"against the ShardedOcean step: par {par_gap:.3e}, state "
+          f"{state_gap:.3e} (limit {PARALLEL_STEP_TOL:g})", flush=True)
     if not gap <= PARALLEL_MATVEC_TOL:
         raise AssertionError(f"parallel (a): sharded matvec gap {gap:.3e}")
+    if not all(g <= PARALLEL_ASSEMBLY_TOL for pair in gaps.values()
+               for g in pair):
+        raise AssertionError(f"parallel (a): partitioned assembly {gaps}")
     if not (res.relres <= tol1 and true <= 2 * tol1
             and res2.relres <= tol2):
         raise AssertionError(f"parallel (a): a sharded solve missed its "
                              f"tolerance ({true:.3e}, {res2.relres:.3e})")
-    return -F, o.apply_matrix, res.x
+    if not (step["status"] == sres.status == 0 and step["steps"] == 1
+            and par_gap <= PARALLEL_STEP_TOL
+            and state_gap <= PARALLEL_STEP_TOL):
+        raise AssertionError("parallel (a): the ShardedOcean step is not "
+                             "the serial one")
+    return -F, o.apply_matrix, res.x, step
 
 
 def phase_parallel(hopper, card_line: str) -> dict:
     """(a) one rank over NCCL; (b) PARALLEL_RANKS ranks on the one card
-    over gloo: the sharded matvec on each of PARALLEL_SHAPES against the
-    serial product, timed per rank, then the dry run's two stages at
-    PARALLEL_GRID, its Newton update held to (a)'s; (c) the dry run at its
-    own grid.  Returns the kernel launches of the phase, the ranks'
+    over gloo: the sharded matvec and the partitioned assembly on each of
+    PARALLEL_SHAPES against the serial ones, timed per rank, then the dry
+    run's three stages at PARALLEL_GRID, its Newton update and its
+    continuation step held to (a)'s; (c) the dry run at its own grid.  Returns the kernel launches of the phase, the ranks'
     included, by entry point: none, as the sharded path contracts its
     windows in plain PyTorch (the JAX package's reaches no Pallas
     kernel)."""
@@ -2557,12 +2659,18 @@ def phase_parallel(hopper, card_line: str) -> dict:
         raise AssertionError("decomp2d's rank grid changed")
     hopper.reset_launches()
     t0 = time.perf_counter()
-    b, apply_J, z1 = _parallel_one_rank(multichip, card_line)
+    b, apply_J, z1, step1 = _parallel_one_rank(multichip, card_line)
     print(f"parallel (a) {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    n, m, l = PARALLEL_GRID
+    xr = 0.01 * np.random.default_rng(PARALLEL_SEED).standard_normal(
+        (6, l, m, n))
     jobs = [("ops", dict(thcm=GLOBAL_THCM, shape=shape, timed=True))
             for shape in PARALLEL_SHAPES]
+    jobs += [("assembly", dict(thcm=GLOBAL_THCM, shape=shape, x=xr,
+                               gathered=False, timed=True))
+             for shape in PARALLEL_SHAPES]
     jobs += [("dryrun", {"grid": PARALLEL_GRID}), ("launches", {})]
     out = multichip.run_ranks(PARALLEL_RANKS, jobs, device="cuda",
                               backend="gloo", timeout_s=300.0)
@@ -2581,8 +2689,41 @@ def phase_parallel(hopper, card_line: str) -> dict:
             if not ops["gap"] <= PARALLEL_MATVEC_TOL:
                 raise AssertionError(f"parallel (b) {shape}: sharded matvec "
                                      f"gap {ops['gap']:.3e}")
+    k0 = len(PARALLEL_SHAPES)
+    for k, shape in enumerate(PARALLEL_SHAPES):
+        for rank, r in enumerate(out):
+            a = r[k0 + k]
+            print(f"parallel (b) {shape[0]}x{shape[1]} rank {rank} "
+                  f"({a['ry']},{a['rx']}): partitioned F gap "
+                  f"{a['F_gap']:.3e}, An gap {a['An_gap']:.3e} (limit "
+                  f"{PARALLEL_ASSEMBLY_TOL:g}); partitioned residual "
+                  f"{a['rhs_s']:.4f} s, Jacobian {a['jac_s']:.4f} s (the "
+                  f"replicated ones before the partition, PERF.md: "
+                  f"0.334-0.348 s together); 2-deep "
+                  f"halo exchange {a['halo2_s'] * 1e3:.3f} ms of "
+                  f"{a['halo2_bytes']} bytes sent [{card_line}]", flush=True)
+            if not max(a["F_gap"], a["An_gap"]) <= PARALLEL_ASSEMBLY_TOL:
+                raise AssertionError(f"parallel (b) {shape}: partitioned "
+                                     f"assembly gaps {a['F_gap']:.3e} "
+                                     f"{a['An_gap']:.3e}")
     ranks = [dict(r[-2], launches=r[-1]) for r in out]
     multichip.print_ranks(ranks, "parallel (b) dry run")
+    for r in ranks:
+        _print_step(f"parallel (b) dry run stage 3, rank {r['rank']} "
+                    f"({r['ry']},{r['rx']})", r["step"], card_line)
+    step4 = ranks[0]["step"]
+    par_gap = abs(step4["par"] - step1["par"])
+    close = np.allclose(step4["state"], step1["state"], rtol=PARALLEL_RTOL,
+                        atol=PARALLEL_ATOL)
+    worst = float(np.max(np.abs(step4["state"] - step1["state"])
+                         - PARALLEL_RTOL * np.abs(step1["state"])))
+    print(f"parallel (b) stage 3's four-rank step against (a)'s one-rank "
+          f"step: par {par_gap:.3e} (limit {PARALLEL_PAR_TOL:g}), state "
+          f"within rtol {PARALLEL_RTOL:g} atol {PARALLEL_ATOL:g}: {close} "
+          f"(largest excess over rtol {worst:.3e})", flush=True)
+    if not (par_gap <= PARALLEL_PAR_TOL and close):
+        raise AssertionError("parallel (b): the four-rank continuation "
+                             "step parts from the one-rank step")
     z4 = torch.as_tensor(ranks[0]["update"], device=z1.device)
     dz = apply_J(z4 - z1)
     rgap = float(torch.linalg.norm(dz) / torch.linalg.norm(b))

@@ -6,7 +6,10 @@ bordered-system Newton corrector with two linear solves per iteration
 and 'O'ld / 'N'ew normalization strategies, backtracking, secant
 destination detection, Seydel step-size control, and failure-reset with
 state00 double buffering.  The loop is host Python; norms and dots run
-on the model's tensors.
+on the model's tensors.  A model whose state is split over ranks (the
+sharded ocean, ``parallel.model``) gives its sums and maxima over the
+ranks as ``reduce`` and ``reduce_max``; a model without them (or with
+None, one rank) gets the serial arithmetic.
 """
 
 from __future__ import annotations
@@ -20,16 +23,35 @@ from .config import ParameterList
 from .utils import logging as log
 
 
-def _norm(v) -> float:
-    return float(torch.linalg.norm(v.reshape(-1)))
+def _norm(v, model=None) -> float:
+    reduce = getattr(model, "reduce", None)
+    v = v.reshape(-1)
+    if reduce is None:
+        return float(torch.linalg.norm(v))
+    return float(torch.sqrt(reduce(torch.dot(v, v)[None])[0]))
 
 
-def _dot(a, b) -> float:
-    return float(torch.sum(a * b))
+def _dot(a, b, model=None) -> float:
+    reduce = getattr(model, "reduce", None)
+    if reduce is None:
+        return float(torch.sum(a * b))
+    return float(reduce(torch.sum(a * b)[None])[0])
 
 
-def _norm_inf(v) -> float:
-    return float(torch.amax(torch.abs(v)))
+def _norm_inf(v, model=None) -> float:
+    reduce_max = getattr(model, "reduce_max", None)
+    if reduce_max is None:
+        return float(torch.amax(torch.abs(v)))
+    return reduce_max(torch.abs(v))
+
+
+def _size(v, model=None) -> float:
+    """The number of entries of v, over the ranks."""
+    reduce = getattr(model, "reduce", None)
+    if reduce is None:
+        return float(np.prod(tuple(v.shape)))
+    return float(reduce(torch.tensor([v.numel()], dtype=torch.float64,
+                                     device=v.device))[0])
 
 
 def _missed_tolerance(model) -> tuple[float, float] | None:
@@ -163,6 +185,16 @@ class Continuation:
     def set_eigen_solver(self, solver) -> None:
         self.eigen_solver = solver
 
+    # reductions over the model's state, over its ranks where it has them
+    def _norm(self, v) -> float:
+        return _norm(v, self.model)
+
+    def _dot(self, a, b) -> float:
+        return _dot(a, b, self.model)
+
+    def _norm_inf(self, v) -> float:
+        return _norm_inf(v, self.model)
+
     # ------------------------------------------------------------------
     def initialize(self):
         m = self.model
@@ -180,7 +212,7 @@ class Continuation:
         self.sign_monitor = [0] * len(self.destinations)
         self.secant = False
 
-        N = float(np.prod(tuple(m.get_state().shape)))
+        N = _size(m.get_state(), m)
         if self.normalize_strategy == "O":
             self.zeta = 1.0 / N
         else:
@@ -246,7 +278,7 @@ class Continuation:
                 return 1
 
             self.par_hist.append(self.par)
-            self.state_norm_hist.append(_norm(self.model.get_state()))
+            self.state_norm_hist.append(self._norm(self.model.get_state()))
             self.analyze_hist()
             self.create_tangent(self.tangent_type)
 
@@ -286,8 +318,8 @@ class Continuation:
         self.normalize()
         # restore consistent rhs in the model (dfdpar left F(par+eps))
         m.compute_rhs()
-        log.INFO(f"   ||state||  = {_norm(m.get_state()):.8e}")
-        log.INFO(f"   ||stateDot|| = {_norm(self.state_dot):.8e}")
+        log.INFO(f"   ||state||  = {self._norm(m.get_state()):.8e}")
+        log.INFO(f"   ||stateDot|| = {self._norm(self.state_dot):.8e}")
         log.INFO(f"   parDot     = {self.par_dot:.8e}")
 
     def create_tangent(self, mode: str):
@@ -316,11 +348,11 @@ class Continuation:
 
     def normalize(self):
         """Tangent normalization (Continuation.H:496-543)."""
-        nrm = _norm(self.state_dot)
+        nrm = self._norm(self.state_dot)
         if self.normalize_strategy == "O":
             self.zeta = self.tan_scaling / nrm
             self.state_dot = self.state_dot * self.zeta
-            nrm2 = _norm(self.state_dot)
+            nrm2 = self._norm(self.state_dot)
             norm_comb = np.sqrt(nrm2 * nrm2 + 1.0)
             self.state_dot = self.state_dot / norm_comb
             self.par_dot = 1.0 / norm_comb
@@ -338,7 +370,7 @@ class Continuation:
         self.par = self.par + self.ds * self.par_dot
         m.set_par(self.par_name, self.par)
         m.compute_rhs()
-        rhs_nrm = _norm(m.get_rhs())
+        rhs_nrm = self._norm(m.get_rhs())
         log.INFO(f"   predictor: par={self.par:.8e}  |rhs|={rhs_nrm:.3e}")
         if rhs_nrm > self.predictor_bound:
             log.INFO("   predictor: rhs too big!")
@@ -348,6 +380,7 @@ class Continuation:
     def newton_corrector(self) -> int:
         """Bordered-system Newton corrector (Continuation.H:585-813)."""
         m = self.model
+        dot = self._dot
         res0 = 100.0
         res = 100.0
         y = None
@@ -359,18 +392,18 @@ class Continuation:
             self.compute_dfdpar(mode)
 
             R = -self.rhs_copy
-            self.norm_rhs = _norm(self.rhs_copy)
+            self.norm_rhs = self._norm(self.rhs_copy)
 
             state_diff = m.get_state() - self.storage.state0
             par_diff = self.par - self.storage.par0
 
             if self.normalize_strategy == "O":
                 rbp = (self.ds
-                       - _dot(self.state_dot, state_diff) * self.zeta
+                       - dot(self.state_dot, state_diff) * self.zeta
                        - self.par_dot * par_diff)
             elif self.normalize_strategy == "N":
                 rbp = (self.ds * self.ds
-                       - _dot(state_diff, state_diff) * self.zeta
+                       - dot(state_diff, state_diff) * self.zeta
                        - par_diff * par_diff)
             else:
                 log.WARNING("undefined normalization strategy!")
@@ -390,22 +423,22 @@ class Continuation:
 
             if self.normalize_strategy == "O":
                 if self.newt_chord_hybr:
-                    par_dir = ((rbp - self.zeta * _dot(self.state_dot, z))
+                    par_dir = ((rbp - self.zeta * dot(self.state_dot, z))
                                / (self.par_dot + self.zeta
-                                  * _dot(self.state_dot, self.state_dot)))
+                                  * dot(self.state_dot, self.state_dot)))
                 else:
-                    par_dir = ((rbp - self.zeta * _dot(self.state_dot, z))
+                    par_dir = ((rbp - self.zeta * dot(self.state_dot, z))
                                / (self.par_dot - self.zeta
-                                  * _dot(self.state_dot, y)))
+                                  * dot(self.state_dot, y)))
             else:
                 if self.newt_chord_hybr:
-                    par_dir = ((rbp - 2 * self.zeta * _dot(state_diff, z))
+                    par_dir = ((rbp - 2 * self.zeta * dot(state_diff, z))
                                / (2 * par_diff + 2 * (self.zeta / par_diff)
-                                  * _dot(state_diff, state_diff)))
+                                  * dot(state_diff, state_diff)))
                 else:
-                    par_dir = ((rbp - 2 * self.zeta * _dot(state_diff, z))
+                    par_dir = ((rbp - 2 * self.zeta * dot(state_diff, z))
                                / (2 * par_diff - 2 * self.zeta
-                                  * _dot(state_diff, y)))
+                                  * dot(state_diff, y)))
 
             if self.newt_chord_hybr:
                 state_dir = z + par_dir * self.state_dot
@@ -420,7 +453,7 @@ class Continuation:
             self.sum_newton_iter += 1
 
             m.compute_rhs()
-            self.norm_rhs_test = _norm(m.get_rhs())
+            self.norm_rhs_test = self._norm(m.get_rhs())
 
             if self.norm_rhs_test > self.predictor_bound:
                 log.INFO(f" norm too big! {self.norm_rhs_test:.3e}")
@@ -430,16 +463,16 @@ class Continuation:
                 if self.run_backtracking(state_dir, par_dir):
                     return 1
 
-            nrm_state0 = _norm(self.storage.state0)
-            if _norm(state_dir) > 1e3 * nrm_state0 and nrm_state0 > 0:
-                log.WARNING(f"  |dx| = {_norm(state_dir):.3e} >> "
+            nrm_state0 = self._norm(self.storage.state0)
+            if self._norm(state_dir) > 1e3 * nrm_state0 and nrm_state0 > 0:
+                log.WARNING(f"  |dx| = {self._norm(state_dir):.3e} >> "
                             f"old |x| = {nrm_state0:.3e}")
                 return 1
 
             if self.residual_test == "R":
                 res = self.norm_rhs_test
             elif self.residual_test == "D":
-                res = max(abs(par_dir), _norm_inf(state_dir))
+                res = max(abs(par_dir), self._norm_inf(state_dir))
                 # a small update from a solve that made no progress is no
                 # sign of convergence: under "D" the iterate counts only
                 # where every solve of this iteration reached its request
@@ -494,7 +527,7 @@ class Continuation:
             self.par = self.par + reduction * par_dir
             m.set_par(self.par_name, self.par)
             m.compute_rhs()
-            self.norm_rhs_test = _norm(m.get_rhs())
+            self.norm_rhs_test = self._norm(m.get_rhs())
             log.INFO(f"    backtracking step {back_track}, "
                      f"norm {self.norm_rhs_test:.3e}")
             reduction /= 2.0
@@ -637,7 +670,7 @@ class Continuation:
         log.INFO("-----------------------------------------")
         log.INFO(f" step {self.step_}  ds={self.ds:.6e}  "
                  f"par={self.par:.8e}  dest={self.destinations[-1]}")
-        log.INFO(f" ||x||={_norm(self.model.get_state()):.6e}  "
+        log.INFO(f" ||x||={self._norm(self.model.get_state()):.6e}  "
                  f"parDot={self.par_dot:.4e}  "
                  f"resets={self.reset_counter}")
 
@@ -648,7 +681,7 @@ class Continuation:
                       f"{'NR':>5}" + self.model.write_data(True))
             log.write_cdata(header)
         line = (f"{self.par:>16.8e}{self.ds:>12.4e}"
-                f"{_norm(self.model.get_state()):>12.4e}"
-                f"{_norm(self.model.get_rhs()):>12.4e}"
+                f"{self._norm(self.model.get_state()):>12.4e}"
+                f"{self._norm(self.model.get_rhs()):>12.4e}"
                 f"{self.newton_iter:>5d}" + self.model.write_data(False))
         log.write_cdata(line)

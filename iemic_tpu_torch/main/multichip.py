@@ -8,14 +8,17 @@ Port of the root ``__graft_entry__.py``:
   * :func:`dryrun_multichip` spawns n ranks (one process each, over
     ``torch.distributed``) that run one Newton step of the ocean over the
     (py, px) rank grid — the analog of the reference's 2D MPI domain
-    decomposition (reference src/trios/TRIOS_Domain.H:29-99) — in two
-    stages: (1) the sharded residual and Jacobian and a Double
+    decomposition (reference src/trios/TRIOS_Domain.H:29-99) — in three
+    stages: (1) the partitioned residual and Jacobian and a Double
     BGS-preconditioned solve at 1e-2 (120 iterations); (2) a sharded Mixed
     solve at 2e-2 (refinement sweeps of at most 12 inner iterations, the
     light sweep of the JAX dry run), which raises if it misses its
-    tolerance.  The JAX dry run's third stage, a continuation step with a
-    sharded state, needs GSPMD to partition a whole ``Continuation``; it
-    has no counterpart here (ROADMAP).
+    tolerance; (3) one pseudo-arclength continuation step (Euler
+    predictor, bordered Newton corrector, detect, step control) of a
+    ``ShardedOcean``: the JAX dry run's periodic (4 px) x (4 py) x 4 box
+    with Columns/Double at 1e-2, or with ``--grid`` the same step of the
+    masked global model from rest at Combined Forcing 0 (where rest is
+    steady) on the BGS/Double solve at 5e-2.
 
 Usage: python -m iemic_tpu_torch.main.multichip --ranks N
            [--device cuda|cpu] [--backend gloo|nccl] [--grid n m l]
@@ -58,6 +61,25 @@ STAGE1_TOL, STAGE1_ITERS = 1e-2, 120
 STAGE2_TOL, STAGE2_ITERS = 2e-2, 12
 STAGE2_APPLY = {"nit_spp": 10, "nit_uv": 6}
 STAGE2_INNER_TOL = 1e-2
+# stage 3 (the JAX dry run's, __graft_entry__.py:240-287): one
+# continuation step with a sharded state, its solver and its parameters;
+# with a masked global grid the BGS/Double solve at the main phase's
+# FGMRES tolerance of chip_smoke.py.  The box's Columns solves stall in
+# the corrector (relres 0.4-1.0 after 100 iterations, as in the JAX
+# package, tests/test_torch_faults.py); the JAX corrector accepts their
+# updates and ends the step, the port's refuses them (ROADMAP A1) and
+# would halve the step twenty times.  So the step keeps its unconverged
+# corrector, as the JAX one does: it takes the predictor, three bordered
+# Newton iterations, detection, step control and the cdata line.
+STAGE3_SOLVER = {"Preconditioning": "Columns", "Precision": "Double",
+                 "FGMRES tolerance": 1e-2, "FGMRES iterations": 100}
+STAGE3_GLOBAL_SOLVER = {"Preconditioning": "BGS", "Precision": "Double",
+                        "FGMRES tolerance": 5e-2, "FGMRES iterations": 100}
+STAGE3_CONT = {"continuation parameter": "Combined Forcing",
+               "initial step size": 0.05, "destination 0": 1.0,
+               "maximum number of steps": 1, "Newton tolerance": 1e-2,
+               "maximum Newton iterations": 3,
+               "reject failed iteration": False}
 # repetitions of a halo exchange and a sharded matvec when timing them
 TIMED_REPS = 10
 
@@ -138,13 +160,39 @@ def dryrun_config(grid, shape) -> tuple[dict, np.ndarray | None]:
     return thcm, 0.001 * rng.standard_normal((6, l, m, n))
 
 
+def stage3_config(grid, shape) -> tuple[dict, dict]:
+    """(THCM parameters, solver parameters) of stage 3 on the rank grid
+    shape, from rest: the JAX dry run's periodic (4 px) x (4 py) x 4 box
+    on Columns/Double; where the repo has a mask of grid's size, that
+    grid's masked global ocean on the BGS/Double solve at Combined
+    Forcing 0, the start of run/ocean/global's branch.  Rest is the
+    steady state there (every forcing term scales with Combined Forcing),
+    and not at the dry run's 0.1, where a continuation step would start
+    off its branch."""
+    py, px = shape
+    if grid is not None:
+        thcm, _ = dryrun_config(grid, shape)
+        if thcm.get("Read Land Mask"):
+            start = dict(thcm["Starting Parameters"],
+                         **{"Combined Forcing": 0.0})
+            return dict(thcm, **{"Starting Parameters": start}), \
+                dict(STAGE3_GLOBAL_SOLVER)
+    return {"Global Grid-Size n": 4 * px, "Global Grid-Size m": 4 * py,
+            "Global Grid-Size l": 4, "Periodic": True, "Coriolis Force": 0,
+            "Starting Parameters": {"Combined Forcing": 0.0,
+                                    "Temperature Forcing": 10.0,
+                                    "Salinity Forcing": 0.1}}, \
+        dict(STAGE3_SOLVER)
+
+
 # ---------------------------------------------------------------------------
 # jobs: what a rank runs (every rank of the group together)
 # ---------------------------------------------------------------------------
 
-def _ocean(device, thcm: dict, landm=None, state=None):
+def _ocean(device, thcm: dict, landm=None, state=None, solver=None):
     from ..models.ocean import Ocean
-    ocean = Ocean({"THCM": thcm}, data_dir=DATA, device=device)
+    ocean = Ocean({"THCM": thcm}, solver_params=solver, data_dir=DATA,
+                  device=device)
     if landm is not None:
         ocean.set_land_mask(np.asarray(landm), finalized=True)
     if state is not None:
@@ -152,17 +200,18 @@ def _ocean(device, thcm: dict, landm=None, state=None):
     return ocean
 
 
-def _domain(device, grid, shape, periodic):
+def _domain(device, grid, shape, periodic, group=None):
     from ..parallel import Domain
     n, m, l = grid
-    return Domain(n, m, l, periodic=periodic, shape=shape, device=device)
+    return Domain(n, m, l, periodic=periodic, shape=shape, device=device,
+                  group=group)
 
 
-def _ocean_domain(device, thcm: dict, shape):
+def _ocean_domain(device, thcm: dict, shape, group=None):
     """The Domain of the ocean that thcm describes, on the rank grid
     shape."""
     return _domain(device, [thcm[f"Global Grid-Size {k}"] for k in "nml"],
-                   shape, bool(thcm["Periodic"]))
+                   shape, bool(thcm["Periodic"]), group)
 
 
 def _sync(device) -> None:
@@ -182,11 +231,12 @@ def _seconds(fn, device, reps: int = TIMED_REPS) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def job_halo(device, x, shape, periodic):
-    """This rank's block of x padded by halo_pad_shard, with its place."""
+def job_halo(device, x, shape, periodic, depth=1):
+    """This rank's block of x padded by halo_pad_shard to depth, with its
+    place."""
     from ..parallel import halo_pad_shard
     dom = _domain(device, x.shape[-1:-4:-1], shape, periodic)
-    xp = halo_pad_shard(dom.shard_state(torch.as_tensor(x)), dom)
+    xp = halo_pad_shard(dom.shard_state(torch.as_tensor(x)), dom, depth)
     return {"ry": dom.ry, "rx": dom.rx, "padded": xp.cpu().numpy()}
 
 
@@ -263,6 +313,141 @@ def job_newton(device, thcm, shape, x, tol, maxiter, landm=None):
     return dom.gather(x_l + res.x).cpu().numpy()
 
 
+def _refuse_gather(*args, **kw):
+    raise AssertionError("the partitioned assembly gathered")
+
+
+def job_assembly(device, thcm, shape, x, landm=None, gathered=True,
+                 timed=False, group=None):
+    """make_sharded_ops' partitioned rhs and jac at the state x, with the
+    domain's gather refusing inside them: the gaps of the gathered F and
+    An to the serial Ocean._rhs and Ocean._jacobian, relative to their
+    largest entries, and with gathered the gathered F and An (on rank 0
+    of the group); with timed
+    the seconds of rhs and of jac and the seconds and bytes sent of one
+    2-deep halo exchange."""
+    from ..parallel import halo_extend, make_sharded_ops
+    dom = _ocean_domain(device, thcm, shape, group)
+    ocean = _ocean(dom.device, thcm, landm)
+    ops = make_sharded_ops(ocean, dom)
+    x = ocean._tensor(x)
+    x_l = dom.shard_state(x)
+    dom.gather = _refuse_gather
+    F_l = ops["rhs"](x_l, ocean.par)
+    An_l = ops["jac"](x_l, ocean.par)
+    out = {"ry": dom.ry, "rx": dom.rx}
+    if timed:
+        out["rhs_s"] = _seconds(lambda: ops["rhs"](x_l, ocean.par),
+                                dom.device, 3)
+        out["jac_s"] = _seconds(lambda: ops["jac"](x_l, ocean.par),
+                                dom.device, 3)
+        sent = dom.sent_bytes
+        out["halo2_s"] = _seconds(lambda: halo_extend(x_l, dom, 2),
+                                  dom.device)
+        out["halo2_bytes"] = (dom.sent_bytes - sent) // (TIMED_REPS + 1)
+    del dom.gather
+    F, An = dom.gather(F_l), dom.gather(An_l)
+    Fs, As = ocean._rhs(x, ocean.par), ocean._jacobian(x, ocean.par)
+    out["F_gap"] = float((F - Fs).abs().max() / Fs.abs().max())
+    out["An_gap"] = float((An - As).abs().max() / As.abs().max())
+    if gathered and dom.rank == 0:
+        out["F"], out["An"] = F.cpu().numpy(), An.cpu().numpy()
+    return out
+
+
+def job_columns(device, thcm, shape, x, v, group=None):
+    """The column-block preconditioner built and applied on this rank's
+    block of the Jacobian at x (no gather), on the block of v: the
+    gathered result."""
+    from ..parallel import make_sharded_ops
+    from ..solvers.preconditioner import (apply_column_prec,
+                                          build_column_blocks)
+    dom = _ocean_domain(device, thcm, shape, group)
+    ocean = _ocean(dom.device, thcm)
+    ops = make_sharded_ops(ocean, dom)
+    An_l = ops["jac"](dom.shard_state(ocean._tensor(x)), ocean.par)
+    dom.gather = _refuse_gather
+    z_l = apply_column_prec(build_column_blocks(An_l),
+                            dom.shard_state(ocean._tensor(v)))
+    del dom.gather
+    return dom.gather(z_l).cpu().numpy()
+
+
+def spinup(ocean, comb: float, iters: int = 10) -> None:
+    """Newton on the serial ocean onto Combined Forcing comb (the JAX
+    package's tests/test_parallel.py:275-287)."""
+    ocean.set_par("Combined Forcing", comb)
+    for _ in range(iters):
+        ocean.compute_rhs()
+        if float(torch.linalg.norm(ocean.rhs)) < 1e-11:
+            break
+        ocean.compute_jacobian()
+        ocean.set_state(ocean.get_state() + ocean.solve(-ocean.rhs))
+
+
+def sharded_continuation(dom, thcm, solver, cont, x=None, comb=None,
+                         cdata=None) -> dict:
+    """Continuation(cont) of a ShardedOcean over dom: the ocean of thcm
+    and solver from the state x (rest without it), spun up serially to
+    Combined Forcing comb where given; cdata names this rank's cdata
+    file.  Returns the result's status, steps and par, the gathered
+    state, the Newton iterations, every solve's (MV, relres, seconds)
+    and the seconds of the run, of each residual and of each Jacobian."""
+    from ..continuation import Continuation
+    from ..parallel import ShardedOcean
+    from ..utils import logging as log
+    ocean = _ocean(dom.device, thcm, state=x, solver=solver)
+    if comb is not None:
+        spinup(ocean, comb)
+    model = ShardedOcean(ocean, dom)
+    rhs_s, jac_s = [], []
+
+    def timed(fn, into):
+        def call(*args):
+            _sync(dom.device)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            _sync(dom.device)
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    solve, secs = model.solve, []
+    model.solve = timed(solve, secs)
+    model.compute_rhs = timed(model.compute_rhs, rhs_s)
+    model.compute_jacobian = timed(model.compute_jacobian, jac_s)
+    log.set_cdata_file(cdata)
+    cont_ = Continuation(model, cont)
+    t0 = time.perf_counter()
+    res = cont_.run()
+    seconds = time.perf_counter() - t0
+    log.set_cdata_file(None)
+    solves = [(mv, rr, s) for (mv, rr), s in zip(model.solve_log, secs)]
+    return {"status": res.status, "steps": res.steps,
+            "newton": res.sum_newton_iters,
+            "par": model.get_par(cont["continuation parameter"]),
+            "state": model.gather_state().cpu().numpy(),
+            "solves": solves, "seconds": seconds, "rhs_s": rhs_s,
+            "jac_s": jac_s}
+
+
+def job_continuation(device, thcm, shape, solver, cont, x=None, comb=None,
+                     workdir=None, group=None):
+    """sharded_continuation on the rank grid shape; with workdir each
+    rank names its own cdata file there, and the result says whether
+    this rank's file exists."""
+    dom = _ocean_domain(device, thcm, shape, group)
+    cdata = None if workdir is None else \
+        os.path.join(workdir, f"cdata_{dist.get_rank()}.txt")
+    out = sharded_continuation(dom, thcm, solver, cont, x=x, comb=comb,
+                               cdata=cdata)
+    out.update(rank=dom.rank, ry=dom.ry, rx=dom.rx)
+    if cdata is not None:
+        out["cdata"] = open(cdata).read() if os.path.exists(cdata) \
+            else None
+    return out
+
+
 def job_gate(device, workdir):
     """Each rank writes a checkpoint and a cdata line to its own files
     through the port's writers; returns which of its files exist."""
@@ -293,9 +478,10 @@ def job_modules(device):
 
 
 def job_dryrun(device, grid=None):
-    """The dry run's two stages on the group's ranks; rank 0 prints a line
-    per stage.  Returns this rank's numbers, and on rank 0 the gathered
-    Newton update of stage 1."""
+    """The dry run's three stages on the group's ranks; rank 0 prints a
+    line per stage.  Returns this rank's numbers, and on rank 0 the
+    gathered Newton update of stage 1 and the state after stage 3's
+    step (``step``: sharded_continuation's result)."""
     from ..parallel import halo_pad_shard, make_sharded_ops
     from ..parallel.halo import make_sharded_solve
     t_start = time.perf_counter()
@@ -356,6 +542,23 @@ def job_dryrun(device, grid=None):
               f"iters ({res2.outer} outer), relres={res2.relres:.1e} <= "
               f"{STAGE2_TOL:.0e} [{time.perf_counter() - t_start:.1f} s "
               "total]", flush=True)
+
+    # ---- stage 3: one continuation step with a sharded state -----------
+    thcm3, solver3 = stage3_config(grid, shape)
+    dom3 = _ocean_domain(device, thcm3, shape)
+    step = sharded_continuation(dom3, thcm3, solver3, STAGE3_CONT)
+    if step["status"] != 0 or step["steps"] != 1:
+        raise RuntimeError(f"dryrun_multichip: the sharded continuation "
+                           f"step failed on rank {dom.rank}: status "
+                           f"{step['status']}, {step['steps']} steps")
+    grid3 = "x".join(str(thcm3[f"Global Grid-Size {k}"]) for k in "nml")
+    if dom.rank == 0:
+        print(f"dryrun_multichip: sharded continuation step OK "
+              f"(status={step['status']}, par={step['par']:.3f}) on grid "
+              f"{grid3}, {step['newton']} Newton iterations, "
+              f"{solver3['Preconditioning']}/{solver3['Precision']} solves "
+              f"{[mv for mv, _, _ in step['solves']]} MV "
+              f"[{time.perf_counter() - t_start:.1f} s total]", flush=True)
     return {"rank": dom.rank, "ry": dom.ry, "rx": dom.rx, "grid": (n, m, l),
             "shape": shape, "backend": dom.backend,
             "device": str(dom.device), "mv": res.mv, "relres": res.relres,
@@ -364,11 +567,15 @@ def job_dryrun(device, grid=None):
             "halo_bytes": halo_bytes, "matvec_s": matvec_s,
             "mixed_mv": res2.mv, "mixed_outer": res2.outer,
             "mixed_relres": res2.relres, "mixed_s": mixed_s,
-            "update": update.cpu().numpy() if dom.rank == 0 else None}
+            "update": update.cpu().numpy() if dom.rank == 0 else None,
+            "step": dict(step, state=step["state"] if dom.rank == 0
+                         else None)}
 
 
 JOBS = {"halo": job_halo, "stencil": job_stencil, "ops": job_ops,
         "solve": job_solve, "newton": job_newton, "gate": job_gate,
+        "assembly": job_assembly, "columns": job_columns,
+        "continuation": job_continuation,
         "launches": job_launches, "modules": job_modules,
         "dryrun": job_dryrun}
 
@@ -383,7 +590,17 @@ def _rank_main(rank, n_ranks, init_method, backend, device, jobs, workdir,
     torch.backends.cudnn.allow_tf32 = False
     log.set_verbose(False)
     initialize_environment(backend, init_method, n_ranks, rank, timeout_s)
-    results = [JOBS[name](device, **kw) for name, kw in jobs]
+    results = []
+    for name, kw in jobs:
+        kw = dict(kw)
+        k = kw.pop("ranks", None)
+        if k is None:
+            results.append(JOBS[name](device, **kw))
+            continue
+        # a job on the first k ranks: every rank makes the group
+        group = dist.new_group(list(range(k)))
+        results.append(JOBS[name](device, group=group, **kw)
+                       if rank < k else None)
     dist.barrier()
     dist.destroy_process_group()
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
@@ -394,7 +611,8 @@ def run_ranks(n_ranks: int, jobs, *, device="cuda", backend: str = "gloo",
               timeout_s: float = 600.0) -> list[list]:
     """Spawn n_ranks processes joined over backend, each running every
     (name, keywords) job of jobs in order on device; returns
-    results[rank][job].  A rank that raises ends the run: the others are
+    results[rank][job].  A job whose keywords hold ``ranks=k`` runs on a
+    group of the first k ranks (the others' result is None).  A rank that raises ends the run: the others are
     stopped and this raises (torch.multiprocessing.spawn with join)."""
     import torch.multiprocessing as mp
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -413,7 +631,7 @@ def run_ranks(n_ranks: int, jobs, *, device="cuda", backend: str = "gloo",
 
 def dryrun_multichip(n_ranks: int, device="cuda", grid=None,
                      backend: str | None = None) -> list[dict]:
-    """The two-stage dry run on n_ranks spawned ranks (see the module
+    """The three-stage dry run on n_ranks spawned ranks (see the module
     note); backend None is gloo.  Prints the stages and one line per rank;
     returns each rank's numbers.  Raises where a rank fails or stage 2
     misses its tolerance."""

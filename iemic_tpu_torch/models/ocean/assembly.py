@@ -190,21 +190,23 @@ def _surf(landm: np.ndarray, l: int, m: int, n: int,
 
 
 def nlin(Al: torch.Tensor, x: torch.Tensor, par: torch.Tensor, grid: Grid,
-         landm: np.ndarray, periodic: bool, *, jac: bool) -> torch.Tensor:
+         landm: np.ndarray, periodic: bool, *, jac: bool,
+         keep: np.ndarray | None = None, xedge=None) -> torch.Tensor:
     """Al plus the nonlinear (advective + nonlinear-EOS) atoms.
 
     jac=False reproduces ``nlin_rhs`` (usrc.F90:775-870): An(x)*x equals
     the full nonlinear term; jac=True reproduces ``nlin_jac``
-    (usrc.F90:873-995).  Al is updated in place and returned."""
+    (usrc.F90:873-995).  Al is updated in place and returned.  keep is
+    passed on to ``nonlin.usol``, xedge to ``nonlin.unlin``/``vnlin``."""
     epsr = par[c.ROSB]
     Ra = par[c.RAYL]
     xes = par[c.NLES]
     l, m, n = grid.l, grid.m, grid.n
 
-    U, V, W, P, T, S = nonlin.usol(x, landm, periodic, grid)
+    U, V, W, P, T, S = nonlin.usol(x, landm, periodic, grid, keep)
     surf = _surf(landm, l, m, n, x)
-    un = lambda t: nonlin.unlin(grid, t, U, V, W)  # noqa: E731
-    vn = lambda t: nonlin.vnlin(grid, t, U, V, W)  # noqa: E731
+    un = lambda t: nonlin.unlin(grid, t, U, V, W, xedge)  # noqa: E731
+    vn = lambda t: nonlin.vnlin(grid, t, U, V, W, xedge)  # noqa: E731
     tn = lambda t, F: nonlin.tnlin(grid, t, U, V, W, F, surf)  # noqa: E731
     An = Al
 
@@ -252,8 +254,34 @@ def _extended(landm: np.ndarray, l: int, m: int, n: int) -> np.ndarray:
     return lme
 
 
+def boundary_masks(landm: np.ndarray, l: int, m: int, n: int) -> dict:
+    """The (l, m, n) bool masks ``boundaries`` reads from the land mask:
+    ``ocean`` (the centre cell is OCEAN), ``LM[p]`` (neighbour p, 1-27,
+    is LAND) and the guarded 'extra' neighbours (boundary.F90:64-78).
+    Every mask is a property of its own row, so a window of the masks
+    gives the boundary treatment of that window of the grid."""
+    lme = _extended(landm, l, m, n)
+
+    def nb(di, dj, dk):
+        return _nbmask(lme, di, dj, dk, l, m, n)
+
+    offs = offsets()
+    # 'extra' neighbours; guards i<n / j<m applied
+    i_lt_n = np.broadcast_to(np.arange(n)[None, None, :] < n - 1, (l, m, n))
+    j_lt_m = np.broadcast_to(np.arange(m)[None, :, None] < m - 1, (l, m, n))
+    return dict(
+        ocean=_nbmask(lme, 0, 0, 0, l, m, n, OCEAN),
+        LM={p + 1: nb(*offs[p]) for p in range(27)},
+        southee=nb(2, -1, 0) & i_lt_n,
+        easteast=nb(2, 0, 0) & i_lt_n,
+        northee=nb(2, 1, 0) & i_lt_n,
+        nnorthee=nb(2, 2, 0) & i_lt_n & j_lt_m,
+        nn_j2=nb(0, 2, 0) & j_lt_m)     # nnwest == nnorth == nneast
+
+
 def boundaries(An: torch.Tensor, landm: np.ndarray, grid: Grid, *,
-               linear_part: bool = False) -> torch.Tensor:
+               linear_part: bool = False,
+               masks: dict | None = None) -> torch.Tensor:
     """Apply boundary conditions to (a copy of) the dependency tensor
     (boundary.F90:2-393), preserving the exact sequential update order.
 
@@ -261,27 +289,17 @@ def boundaries(An: torch.Tensor, landm: np.ndarray, grid: Grid, *,
     set to constants (identity rows, the weak 1e-10 links).  With
     linear_part=True those entries are set to zero instead, which gives
     the linear part alone: the derivative of the map in the direction
-    An."""
+    An.  masks are ``boundary_masks`` of An's grid, computed from landm
+    where not given."""
     l, m, n = grid.l, grid.m, grid.n
     one, weak = (0.0, 0.0) if linear_part else (1.0, 1.0e-10)
     An = An.clone()
-    lme = _extended(landm, l, m, n)
-
-    def nb(di, dj, dk):
-        return _nbmask(lme, di, dj, dk, l, m, n)
-
-    ocean = _nbmask(lme, 0, 0, 0, l, m, n, OCEAN)
-    offs = offsets()
-    LM = {p + 1: nb(*offs[p]) for p in range(27)}
-
-    # 'extra' neighbours (boundary.F90:64-78); guards i<n / j<m applied
-    i_lt_n = np.broadcast_to(np.arange(n)[None, None, :] < n - 1, (l, m, n))
-    j_lt_m = np.broadcast_to(np.arange(m)[None, :, None] < m - 1, (l, m, n))
-    southee = nb(2, -1, 0) & i_lt_n
-    easteast = nb(2, 0, 0) & i_lt_n
-    northee = nb(2, 1, 0) & i_lt_n
-    nnorthee = nb(2, 2, 0) & i_lt_n & j_lt_m
-    nn_j2 = nb(0, 2, 0) & j_lt_m     # nnwest == nnorth == nneast
+    if masks is None:
+        masks = boundary_masks(landm, l, m, n)
+    ocean, LM = masks["ocean"], masks["LM"]
+    southee, easteast = masks["southee"], masks["easteast"]
+    northee, nnorthee = masks["northee"], masks["nnorthee"]
+    nn_j2 = masks["nn_j2"]
 
     def msk(mask):
         return torch.as_tensor(mask & ocean, device=An.device)

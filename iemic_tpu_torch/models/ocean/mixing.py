@@ -298,17 +298,23 @@ class Mixing:
         ns = torch.sqrt(torch.sum(x[SS] ** 2))
         return torch.stack([nt > 1e-12, ns > 1e-12]).to(x.dtype)
 
-    def rhs(self, x: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
-        """Mixing contribution to the residual F = An x - Frc + mix."""
+    def rhs(self, x: torch.Tensor, par: torch.Tensor,
+            active: torch.Tensor | None = None) -> torch.Tensor:
+        """Mixing contribution to the residual F = An x - Frc + mix.
+        active overrides the (2,) gates of x (a window of a state whose
+        gates come from the whole state)."""
         mix = mix_divergence(pad_ts(x, self.periodic), par, self.geo,
                              tap=self.tap, rho_mixing=self.rho_mixing)
-        return mix * self._active(x)[:, None, None, None]
+        if active is None:
+            active = self._active(x)
+        return mix * active[:, None, None, None]
 
-    def stencil(self, x: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
+    def stencil(self, x: torch.Tensor, par: torch.Tensor,
+                active: torch.Tensor | None = None) -> torch.Tensor:
         """Exact (27, 2, 2, l, m, n) Jacobian block d mix / d (T, S): each
         color seeds every third padded cell in each dimension, so each
         residual row sees exactly one seeded neighbor per color and the
-        tangent output *is* that stencil entry."""
+        tangent output *is* that stencil entry.  active as in ``rhs``."""
         l, m, n = self.shape
         TS0 = pad_ts(x, self.periodic)
 
@@ -325,4 +331,6 @@ class Mixing:
             torch.stack([torch.gather(outs[b, :, a], 0, self.color_index)
                          for b in range(2)], dim=1)
             for a in range(2)], dim=1)                # (27, a, b, l, m, n)
-        return blk * self._active(x)[None, :, None, None, None, None]
+        if active is None:
+            active = self._active(x)
+        return blk * active[None, :, None, None, None, None]

@@ -28,9 +28,23 @@ def _t(a, ref: torch.Tensor) -> torch.Tensor:
                            device=ref.device)
 
 
+def velocity_keep(landm: np.ndarray, l: int, m: int, n: int) -> np.ndarray:
+    """(l, m+1, n+1) bool: the velocity points ``usol`` keeps, those with
+    no LAND among the four cells around them (usrc.F90:1087-1102); cells
+    outside the grid count as water."""
+    Lint = (landm[1:l + 1, 1:m + 1, 1:n + 1] == LAND)
+    Lpad = np.zeros((l, m + 2, n + 2), dtype=bool)
+    Lpad[:, 1:m + 1, 1:n + 1] = Lint
+    zero = (Lpad[:, 0:m + 1, 0:n + 1] | Lpad[:, 1:m + 2, 0:n + 1]
+            | Lpad[:, 0:m + 1, 1:n + 2] | Lpad[:, 1:m + 2, 1:n + 2])
+    return ~zero
+
+
 def usol(x: torch.Tensor, landm: np.ndarray, periodic: bool,
-         grid: Grid) -> tuple:
-    """Extract ghosted u,v,w,p,t,s fields from state (usrc.F90:997-1104)."""
+         grid: Grid, keep: np.ndarray | None = None) -> tuple:
+    """Extract ghosted u,v,w,p,t,s fields from state (usrc.F90:997-1104).
+    keep is ``velocity_keep`` of x's grid, computed from landm where not
+    given."""
     nun, l, m, n = x.shape
     kw = dict(dtype=x.dtype, device=x.device)
     U = torch.zeros((l + 2, m + 1, n + 1), **kw)
@@ -88,12 +102,9 @@ def usol(x: torch.Tensor, landm: np.ndarray, periodic: bool,
         F[0, jsl, isl] = F[1, jsl, isl]
 
     # land masking of velocity points (usrc.F90:1087-1102)
-    Lint = (landm[1:l + 1, 1:m + 1, 1:n + 1] == LAND)
-    Lpad = np.zeros((l, m + 2, n + 2), dtype=bool)
-    Lpad[:, 1:m + 1, 1:n + 1] = Lint
-    zero = (Lpad[:, 0:m + 1, 0:n + 1] | Lpad[:, 1:m + 2, 0:n + 1]
-            | Lpad[:, 0:m + 1, 1:n + 2] | Lpad[:, 1:m + 2, 1:n + 2])
-    keep = _t(~zero, x)
+    if keep is None:
+        keep = velocity_keep(landm, l, m, n)
+    keep = _t(keep, x)
     U[1:l + 1] *= keep
     V[1:l + 1] *= keep
 
@@ -233,16 +244,36 @@ def _ywin_atoms(atom, Fjm, Fjp, cvm, cvp2, cyv_dy, m, fac=1.0):
     atom[5, :, 0:m - 1, :] = fac * Fjp * cvp2 * cyv_dy[:, 0:m - 1, :]
 
 
-def _wz4(W, l, m, n):
+def _wz4(W, l, m, n, xedge=None):
     w4 = (_win(W, 0, 0, 0, l, m, n) + _win(W, 0, 1, 0, l, m, n)
           + _win(W, 1, 0, 0, l, m, n) + _win(W, 1, 1, 0, l, m, n))
     w4m = (_win(W, 0, 0, -1, l, m, n) + _win(W, 0, 1, -1, l, m, n)
            + _win(W, 1, 0, -1, l, m, n) + _win(W, 1, 1, -1, l, m, n))
+    if xedge is not None:
+        # usol copies the periodic x-ghosts before the rigid lid, so the
+        # whole grid's last column reads its east neighbour's top-layer w
+        # where a column inside the window reads w = 0
+        _, last, wtop = xedge
+        east = torch.roll(wtop, -1, dims=-1)
+        north = torch.cat([east[1:], torch.zeros_like(east[:1])])
+        w4[l - 1, :, last] += (east + north)[:, last]
     return w4, w4m
 
 
-def unlin(grid: Grid, typ: int, U, V, W) -> torch.Tensor:
-    """u-momentum advection atoms (spf.F90:544-665)."""
+def _x_bounds(atom, xedge) -> None:
+    """The zonal pair's loop bounds (i < n east, i > 1 west) where x's
+    grid is a window of a periodic grid.  xedge is (first, last, wtop):
+    the window's columns that are the grid's first and its last (bool),
+    and the state's top-layer w on the window."""
+    if xedge is not None:
+        first, last, _ = xedge
+        atom[7, ..., last] = 0.0
+        atom[1, ..., first] = 0.0
+
+
+def unlin(grid: Grid, typ: int, U, V, W, xedge=None) -> torch.Tensor:
+    """u-momentum advection atoms (spf.F90:544-665); xedge as in
+    ``_x_bounds``."""
     l, m, n = grid.l, grid.m, grid.n
     atom = _zeros_atom(l, m, n, U)
     cyv, cyv_dy, tanr, tdzi, cvm, cvp2 = _metrics(grid, U)
@@ -251,6 +282,7 @@ def unlin(grid: Grid, typ: int, U, V, W) -> torch.Tensor:
         fac = 1.0 if typ == 1 else 2.0
         atom[7, :, :, 0:n - 1] = fac * U[1:l + 1, 1:m + 1, 2:n + 1] * cyv
         atom[1, :, :, 1:n] = -fac * U[1:l + 1, 1:m + 1, 1:n] * cyv
+        _x_bounds(atom, xedge)
     elif typ == 3:   # uvy1
         _ywin_atoms(atom, V[1:l + 1, 0:m, 1:n + 1],
                     V[1:l + 1, 2:m + 1, 1:n + 1], cvm, cvp2, cyv_dy, m)
@@ -258,7 +290,7 @@ def unlin(grid: Grid, typ: int, U, V, W) -> torch.Tensor:
         _ywin_atoms(atom, U[1:l + 1, 0:m, 1:n + 1],
                     U[1:l + 1, 2:m + 1, 1:n + 1], cvm, cvp2, cyv_dy, m)
     elif typ == 5:   # uwz
-        w4, w4m = _wz4(W, l, m, n)
+        w4, w4m = _wz4(W, l, m, n, xedge)
         a23 = w4 * tdzi
         a14 = -w4m * tdzi
         atom[22] = a23
@@ -281,8 +313,9 @@ def unlin(grid: Grid, typ: int, U, V, W) -> torch.Tensor:
     return atom
 
 
-def vnlin(grid: Grid, typ: int, U, V, W) -> torch.Tensor:
-    """v-momentum advection atoms (spf.F90:667-790)."""
+def vnlin(grid: Grid, typ: int, U, V, W, xedge=None) -> torch.Tensor:
+    """v-momentum advection atoms (spf.F90:667-790); xedge as in
+    ``_x_bounds``."""
     l, m, n = grid.l, grid.m, grid.n
     atom = _zeros_atom(l, m, n, U)
     cyv, cyv_dy, tanr, tdzi, cvm, cvp2 = _metrics(grid, U)
@@ -290,15 +323,17 @@ def vnlin(grid: Grid, typ: int, U, V, W) -> torch.Tensor:
     if typ == 1:     # uvx
         atom[7, :, :, 0:n - 1] = U[1:l + 1, 1:m + 1, 2:n + 1] * cyv
         atom[1, :, :, 1:n] = -U[1:l + 1, 1:m + 1, 1:n] * cyv
+        _x_bounds(atom, xedge)
     elif typ == 2:   # uVrx
         atom[7, :, :, 0:n - 1] = V[1:l + 1, 1:m + 1, 2:n + 1] * cyv
         atom[1, :, :, 1:n] = -V[1:l + 1, 1:m + 1, 1:n] * cyv
+        _x_bounds(atom, xedge)
     elif typ in (3, 4):   # vvry / Vrvy
         _ywin_atoms(atom, V[1:l + 1, 0:m, 1:n + 1],
                     V[1:l + 1, 2:m + 1, 1:n + 1], cvm, cvp2, cyv_dy, m,
                     fac=1.0 if typ == 3 else 2.0)
     elif typ == 5:   # vwz — same window pattern as unlin uwz
-        return unlin(grid, 5, U, V, W)
+        return unlin(grid, 5, U, V, W, xedge)
     elif typ == 6:   # Vrwz
         v0 = V[1:l + 1, 1:m + 1, 1:n + 1]
         vp = (v0 + V[2:l + 2, 1:m + 1, 1:n + 1]) * tdzi

@@ -7,13 +7,17 @@ Import/Export halo transfers (reference src/trios/TRIOS_Domain.H:29-99,
 its block on its own device: a ``Domain`` lays the ranks on the (py, px)
 grid, and the stencil matvec exchanges explicit halos between neighbours
 with ``torch.distributed`` point-to-point messages (periodic wraparound in
-x included, reference TRIOS_Domain.H:337-340).
+x included, reference TRIOS_Domain.H:337-340).  The residual and the
+Jacobian are assembled on each block extended by a 2-deep halo
+(``assembly``), and ``ShardedOcean`` runs a continuation on the split
+state.
 """
 
 from .domain import Domain, decomp2d
-from .halo import (halo_pad_shard, make_sharded_stencil_apply,
+from .halo import (halo_extend, halo_pad_shard, make_sharded_stencil_apply,
                    make_sharded_ops, make_sharded_solve)
+from .model import ShardedOcean
 
-__all__ = ["Domain", "decomp2d", "halo_pad_shard",
+__all__ = ["Domain", "decomp2d", "halo_extend", "halo_pad_shard",
            "make_sharded_stencil_apply", "make_sharded_ops",
-           "make_sharded_solve"]
+           "make_sharded_solve", "ShardedOcean"]

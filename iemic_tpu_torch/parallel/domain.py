@@ -231,6 +231,22 @@ class Domain:
         arithmetic."""
         return self.allreduce if self.size > 1 else None
 
+    def amax(self, t: torch.Tensor) -> float:
+        """The largest entry of t over the ranks (t's own on one rank)."""
+        m = torch.amax(t).reshape(1)
+        if self.size == 1:
+            return float(m[0])
+        if self.staged:
+            m = m.cpu()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return float(m[0])
+
+    @property
+    def reduce_max(self):
+        """The largest entry over the ranks, as ``reduce`` is the sum:
+        None on one rank."""
+        return self.amax if self.size > 1 else None
+
     def norm(self, v: torch.Tensor) -> float:
         """The 2-norm of a vector whose blocks the ranks hold."""
         v = v.reshape(-1)

@@ -5,8 +5,8 @@ Port of ``iemic_tpu/parallel/halo.py``.  The reference surrounds every
 RHS/Jacobian evaluation with Standard->Assembly / Assembly->Solve ghost
 imports (2-deep overlap, reference src/trios/TRIOS_Domain.H:273-290, used
 at src/ocean/THCM.C:972,999).  The matrix-free stencil matvec needs a
-1-deep halo, exchanged between the ranks' neighbours with
-``dist.batch_isend_irecv``:
+1-deep halo, the assembly a 2-deep one, exchanged between the ranks'
+neighbours with ``dist.batch_isend_irecv``:
 
   * y (latitude): walls — ranks at the global edge receive zeros,
     matching the reference's zero Dirichlet padding.
@@ -23,20 +23,24 @@ as the JAX package contracts them in an einsum under ``shard_map``: the
 Hopper stencil kernel pads its input itself and cannot take neighbour
 halos, and the JAX package's sharded path reaches no Pallas kernel.
 
-Torch has no GSPMD.  Where the JAX package jits the residual, the
-Jacobian and the block-GS factor build and sweep with sharded inputs and
-lets XLA partition them, every rank here evaluates them on the gathered
-global tensor and keeps its block: replicated work, correct on any
-decomposition, and the open item of partitioning them stands in ROADMAP.
-What is distributed is the Krylov solve: each rank holds its block of
-every Krylov vector, the matvec exchanges halos, and every inner product
-and norm is a sum over ranks (``Domain.allreduce``).
+Torch has no GSPMD.  Where the JAX package jits the residual and the
+Jacobian with sharded inputs and lets XLA partition them, every rank here
+evaluates the serial assembly on its block extended by a 2-deep halo
+(:mod:`.assembly`, ``halo_extend`` at depth 2).  The column-block
+preconditioner is local to each rank, since z is never partitioned.  The
+block-GS factor build and sweep still run on the gathered global tensor
+on every rank (replicated work, correct on any decomposition; the open
+item of partitioning them stands in ROADMAP).  What is distributed is
+the Krylov solve: each rank holds its block of every Krylov vector, the
+matvec exchanges halos, and every inner product and norm is a sum over
+ranks (``Domain.allreduce``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -88,24 +92,40 @@ def _swap(domain, first: torch.Tensor, last: torch.Tensor, down, up):
     return lo.to(first.device), hi.to(first.device)
 
 
-def halo_pad_shard(xl: torch.Tensor, domain) -> torch.Tensor:
-    """Pad a local (nun, l, ml, nl) block to (nun, l+2, ml+2, nl+2) with
-    the neighbours' halos.  Every rank of the domain calls it together."""
+def halo_extend(xl: torch.Tensor, domain, depth: int = 1) -> torch.Tensor:
+    """Extend a local (..., ml, nl) block to (..., ml+2d, nl+2d) with the
+    neighbours' halos of depth d: the y stage sends the d edge rows, the x
+    stage the d edge columns of the y-extended block, so the corners come
+    along.  Zeros at a wall; with one rank in x on a periodic grid the
+    block wraps onto itself.  Every rank of the domain calls it
+    together."""
+    ml, nl = xl.shape[-2:]
+    if ml < depth or nl < depth:
+        raise ValueError(
+            f"halo of depth {depth} around a block of {ml}x{nl} cells: "
+            f"each neighbour sends its {depth} edge rows and columns, so "
+            f"the blocks must be at least {depth} wide")
     # ---- y (j / latitude) ghosts: global walls get zeros -------------
-    lo, hi = _swap(domain, xl[:, :, :1, :], xl[:, :, -1:, :],
+    lo, hi = _swap(domain, xl[..., :depth, :], xl[..., -depth:, :],
                    domain.south, domain.north)
-    xj = torch.cat([lo, xl, hi], dim=2)
+    xj = torch.cat([lo, xl, hi], dim=-2)
 
     # ---- x (i / longitude) ghosts, including corners ------------------
     if domain.px == 1 and domain.periodic:
-        lo, hi = xj[:, :, :, -1:], xj[:, :, :, :1]
+        lo, hi = xj[..., -depth:], xj[..., :depth]
     else:
-        lo, hi = _swap(domain, xj[:, :, :, :1], xj[:, :, :, -1:],
+        lo, hi = _swap(domain, xj[..., :depth], xj[..., -depth:],
                        domain.west, domain.east)
-    xij = torch.cat([lo, xj, hi], dim=3)
+    return torch.cat([lo, xj, hi], dim=-1)
 
+
+def halo_pad_shard(xl: torch.Tensor, domain, depth: int = 1) -> torch.Tensor:
+    """Pad a local (nun, l, ml, nl) block to (nun, l+2d, ml+2d, nl+2d)
+    with the neighbours' halos of depth d (:func:`halo_extend`) and zero
+    surface/bottom ghosts.  Every rank of the domain calls it together."""
     # ---- z ghosts: surface/bottom, always zero -------------------------
-    return torch.nn.functional.pad(xij, (0, 0, 0, 0, 1, 1))
+    return torch.nn.functional.pad(halo_extend(xl, domain, depth),
+                                   (0, 0, 0, 0, depth, depth))
 
 
 def make_sharded_stencil_apply(domain):
@@ -166,39 +186,65 @@ def make_sharded_ops(ocean, domain):
         integral dot is a global reduction.
       * ``rhs(x_l, par, int_correction=0.0)`` / ``jac(x_l, par)`` — this
         rank's block of the residual and of the stencil tensor, evaluated
-        on the gathered global state with ``Ocean._rhs`` and
-        ``Ocean._jacobian`` (replicated work, see the module note).
+        on the block extended by a 2-deep halo
+        (:mod:`.assembly`); neither gathers.
       * ``solve(An_l, b_l, tol, maxiter)`` — the Double sharded solve
         (:func:`make_sharded_solve`).
     """
+    from .assembly import make_partitioned_assembly
     _check_device(ocean, domain)
-    cfg = ocean.cfg
-    matvec = _make_matvec(ocean, domain)
-
-    def rhs(x_l, par, int_correction=0.0):
-        x = domain.gather(x_l)
-        F = ocean._rhs(x, par)
-        if cfg.sres == 0:
-            F[ocean.rowintcon] = cfg.int_sign * (
-                torch.sum(ocean.int_coeff * x) - int_correction)
-        return domain.shard_state(F)
-
-    def jac(x_l, par):
-        return domain.shard_stencil(ocean._jacobian(domain.gather(x_l), par))
-
-    return {"matvec": matvec, "rhs": rhs, "jac": jac,
+    rhs, jac = make_partitioned_assembly(ocean, domain)
+    return {"matvec": _make_matvec(ocean, domain), "rhs": rhs, "jac": jac,
             "solve": make_sharded_solve(ocean, domain)}
 
 
+def sharded_deflator(ocean, domain, An_l: torch.Tensor):
+    """This rank's rows (n_l, k) of the orthonormal basis of the pressure
+    null modes of the Jacobian whose block is An_l, the modes
+    ``Ocean._get_deflator`` keeps (a candidate whose product with J is
+    below 1e-10 of J's largest entry), or None.  The products and the
+    largest entry are taken over the ranks; the candidates and their
+    orthonormalisation are the mask's, on the host."""
+    from ..solvers.preconditioner import pressure_null_vectors
+    cfg = ocean.cfg
+    matvec = _make_matvec(ocean, domain)
+    cands = pressure_null_vectors(ocean.landm, cfg.l, cfg.m, cfg.n,
+                                  periodic=cfg.periodic)
+    scale = domain.amax(torch.abs(An_l))
+    valid = []
+    for z in cands:
+        z_l = domain.shard_state(torch.as_tensor(z, dtype=An_l.dtype))
+        rz = domain.amax(torch.abs(matvec(An_l, z_l)))
+        if rz < 1e-10 * max(scale, 1.0):
+            valid.append(z.reshape(-1))
+    if not valid:
+        return None
+    q, _ = np.linalg.qr(np.stack(valid, axis=1))
+    q = torch.as_tensor(q.T.reshape(-1, 6, cfg.l, cfg.m, cfg.n),
+                        dtype=An_l.dtype)
+    return domain.shard_state(q).reshape(q.shape[0], -1).T.contiguous()
+
+
 def make_sharded_solve(ocean, domain, *, precision: str = "Double",
+                       preconditioner: str = "BGS",
                        apply_opts: dict | None = None,
-                       inner_tol: float = 1e-4, stall_limit: int = 8):
+                       inner_tol: float = 1e-4, stall_limit: int = 8,
+                       nullq="ocean"):
     """Sharded BGS-preconditioned FGMRES solve (the full solve path of
     §3.1 over the ranks): the Krylov matvec exchanges halos, the block-GS
     preconditioner is factored and applied on the gathered vector on
-    every rank, and the pressure null modes (of the ocean's Jacobian when
-    it has one, as in the JAX package) are deflated globally:
-    ``Q^T v`` is a sum over the ranks of their rows.
+    every rank, and the pressure null modes are deflated globally:
+    ``Q^T v`` is a sum over the ranks of their rows.  nullq is this
+    rank's rows of the modes' basis (:func:`sharded_deflator`) or None;
+    "ocean" takes the modes of the ocean's Jacobian where it has one, as
+    the JAX package does.
+
+    preconditioner="Columns" is the column-block preconditioner
+    (``solvers.preconditioner``), local to each rank since z is never
+    partitioned: no gather.  Its solve is ``Ocean._solve_operator``'s
+    with Columns and Double: THCM row scaling where the ocean asks for
+    it (the averaged centre block a sum over the ranks) and the
+    deflation above; Double only.
 
     Returns ``solve(An_l, b_l, tol, maxiter) -> ShardedSolve`` — the
     multi-rank equivalent of Ocean.solve, for the np in {1, 2, 4}
@@ -222,14 +268,25 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
     shape = (6, cfg.l, ml, nl)
     matvec = _make_matvec(ocean, domain)
 
-    nullq = None
-    if ocean.jac is not None and ocean._get_deflator() is not None:
-        q = ocean._get_deflator()
-        nullq = domain.shard_state(q.T.reshape(-1, 6, cfg.l, cfg.m, cfg.n)) \
-            .reshape(q.shape[1], -1).T.contiguous()
+    if isinstance(nullq, str):
+        nullq = None
+        if ocean.jac is not None and ocean._get_deflator() is not None:
+            q = ocean._get_deflator()
+            nullq = domain.shard_state(
+                q.T.reshape(-1, 6, cfg.l, cfg.m, cfg.n)) \
+                .reshape(q.shape[1], -1).T.contiguous()
 
     def proj(v, Q):
         return v if Q is None else v - Q @ domain.allreduce(Q.T @ v)
+
+    if preconditioner == "Columns":
+        if precision != "Double":
+            raise ValueError("the sharded Columns solve takes Precision "
+                             f"Double, not {precision}")
+        return _columns_solve(ocean, domain, matvec, proj, nullq, shape)
+    if preconditioner != "BGS":
+        raise ValueError(f"sharded solve: preconditioner {preconditioner} "
+                         "(the sharded ones are BGS and Columns)")
 
     def build(An_g, int_scale):
         int_row = ((ocean.int_coeff, ocean.rowintcon, int_scale)
@@ -246,9 +303,20 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         return bgs.SweepGraphs(factors) if domain.device.type == "cuda" \
             else None
 
+    built = {}
+
+    def factors_for(An_l):
+        """The sweep's factors and graphs for An_l, kept while the solves
+        take the same tensor (as Ocean keeps its factors)."""
+        if built.get("An") is not An_l:
+            built.clear()
+            factors = build(domain.gather(An_l), float(cfg.int_sign))
+            built.update(An=An_l, factors=factors,
+                         graphs=graphs_for(factors))
+        return built["factors"], built["graphs"]
+
     def solve_double(An_l, b_l, tol, maxiter):
-        factors = build(domain.gather(An_l), float(cfg.int_sign))
-        graphs = graphs_for(factors)
+        factors, graphs = factors_for(An_l)
 
         def mv(v):
             return proj(matvec(An_l, v.reshape(shape)).reshape(-1), nullq)
@@ -368,3 +436,66 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                             outer)
 
     return solve_mixed
+
+
+def _columns_solve(ocean, domain, matvec, proj, nullq, shape):
+    """The Columns + Double solve of ``Ocean._solve_operator``
+    (``_get_prec_factors``, ``_solve_double``) on this rank's block."""
+    from ..models.ocean import scaling
+    from ..ops.stencil import OCEAN, TT
+    from ..solvers.preconditioner import (apply_column_prec,
+                                          build_column_blocks)
+    cfg = ocean.cfg
+    ml, nl = domain.local_shape
+    ocean_g = ocean.landm[1:cfg.l + 1, 1:cfg.m + 1, 1:cfg.n + 1] == OCEAN
+    n_ocean = max(int(ocean_g.sum()), 1)
+    ocean_l = ocean_g[:, domain.j0:domain.j0 + ml, domain.i0:domain.i0 + nl]
+
+    def row_scale(An_l):
+        """scaling.row_col_scaling's row field R on this block, and its
+        value at the integral row: the averaged centre block is a sum
+        over the ranks."""
+        mask = torch.as_tensor(ocean_l, dtype=An_l.dtype, device=An_l.device)
+        db = domain.allreduce((An_l[4] * mask).sum(dim=(2, 3, 4))) / n_ocean
+        dr, _ = scaling.scal(db.cpu().numpy())
+        R = np.where(ocean_l[None], (1.0 / dr)[:, None, None, None], 1.0)
+        R[TT] = R[SS] = 0.5 * (R[TT] + R[SS])
+        rint = 0.5 * (1.0 / dr[TT] + 1.0 / dr[SS])
+        return torch.as_tensor(R, dtype=An_l.dtype, device=An_l.device), rint
+
+    built = {}
+
+    def scaled(An_l):
+        """The row-scaled block, its row scale, the integral row's scale
+        and the column factors, kept while the solves take the same
+        tensor (as Ocean keeps its factors)."""
+        if built.get("An") is not An_l:
+            built.clear()
+            R_l, rint, An_s = None, 1.0, An_l
+            if cfg.scaling == "THCM":
+                R_l, rint = row_scale(An_l)
+                An_s = An_l * R_l[None, :, None]
+            built.update(An=An_l, R=R_l, rint=rint, An_s=An_s,
+                         factors=build_column_blocks(An_s))
+        return built["An_s"], built["R"], built["rint"], built["factors"]
+
+    def solve(An_l, b_l, tol, maxiter):
+        An_l, R_l, rint, factors = scaled(An_l)
+        if R_l is not None:
+            b_l = b_l * R_l
+
+        def mv(v):
+            return proj(matvec(An_l, v.reshape(shape), rint).reshape(-1),
+                        nullq)
+
+        def pc(v):
+            return proj(apply_column_prec(factors, v.reshape(shape))
+                        .reshape(-1), nullq)
+
+        flat_b = proj(b_l.reshape(-1), nullq)
+        res = fgmres_flat(mv, pc, flat_b, torch.zeros_like(flat_b),
+                          float(tol), maxiter, reduce=domain.reduce)
+        return ShardedSolve(proj(res.x, nullq).reshape(shape), res.iters,
+                            res.relres, 0)
+
+    return solve

@@ -401,11 +401,15 @@ def test_only_rank0_writes(ranks, tmp_path):
 
 
 def test_dryrun_stages(ranks):
-    """The dry run's two stages on four ranks (2x2, 8x8x3): the Double
+    """The dry run's three stages on four ranks (2x2, 8x8x3): the Double
     solve within 1e-2 with its true residual, the Mixed one within 2e-2;
     every rank reports the same iterations; halo bytes as the faces
     give them (a rank sends one y face of 6x3x4, the other side is a wall,
-    and two x faces of 6x3x6 f64, periodic)."""
+    and two x faces of 6x3x6 f64, periodic).  Stage 3, one continuation
+    step of a ShardedOcean on the JAX dry run's 8x8x4 box: accepted, three
+    Newton iterations with two solves each after the tangent's, the
+    tangent's solve within 1e-2, every rank at the same parameter, the
+    state finite."""
     d = ranks["dryrun"]
     assert [(r["ry"], r["rx"]) for r in d] == [(0, 0), (0, 1), (1, 0),
                                                (1, 1)]
@@ -415,8 +419,16 @@ def test_dryrun_stages(ranks):
         assert r["mixed_relres"] <= multichip.STAGE2_TOL
         assert (r["mv"], r["mixed_mv"]) == (d[0]["mv"], d[0]["mixed_mv"])
         assert r["halo_bytes"] == 8 * (6 * 3 * 4 + 2 * 6 * 3 * 6)
+        step = r["step"]
+        assert (step["status"], step["steps"], step["newton"]) == (0, 1, 3)
+        assert len(step["solves"]) == 7
+        assert step["solves"][0][1] <= multichip.STAGE3_SOLVER[
+            "FGMRES tolerance"]
+        assert step["par"] == d[0]["step"]["par"] > 0
     assert d[0]["update"].shape == (6, 3, 8, 8)
     assert np.isfinite(d[0]["update"]).all()
+    assert d[0]["step"]["state"].shape == (6, 4, 8, 8)
+    assert np.isfinite(d[0]["step"]["state"]).all()
 
 
 def test_entry_matches_jax():
