@@ -1,8 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
-    python3 chip_smoke.py --general-kernel   # and the main phase once
-                                     # more through the general-shape kernel
 
 Phases, each printing its own line:
   1. device   — the card's name and power limit (nvidia-smi); TF32 off
@@ -10,21 +8,26 @@ Phases, each printing its own line:
   3. kernel   — every entry point of the kernel library against the
                 plain PyTorch version, periodic and not, f32 and bf16
                 coefficients: the wide kernels on the global 96x38x12
-                grid, the general-shape kernels at 12x38x97 and 6x6x3;
+                grid (and f32 at 12x38x100), the general-shape kernels
+                at 12x38x97, 12x38x100 (bf16), 6x6x3, 2x3x1 and 2x3x2;
                 each also on an x kept on the two edge columns in i;
-                CUDA-event times beside the bound (the bytes of the
-                coefficients whose neighbour lies in the grid, of x and
-                of y, over 3.35 TB/s) and one read of all coefficients
-                by PyTorch
+                wherever the wide kernel runs, the general-shape kernel
+                on the same values (forced by a misaligned x) equal to
+                it value for value; CUDA-event times beside the bound
+                (the bytes of the coefficients whose neighbour lies in
+                the grid, of x and of y, over 3.35 TB/s), cuSPARSE
+                beside them at 12x38x97 and 12x38x100, and one read of
+                all coefficients by PyTorch
   4. assembly — F and the f64 stencil tensor An of the global grid
                 computed on the card against the port on the CPU
   5. effort   — one production solve (BGS + Mixed, tol 1e-3) of the
                 configuration whose effort TESTLOG.md:139 records for
                 the JAX package (69 MV to relres 6.92e-4): the port must
                 meet the tolerance with MV within 10% of that record;
-                then both f32 kernels on that model's own Jacobian and
-                the solve's vectors against the f64 product, and every
-                entry point and cuSPARSE timed on that Jacobian
+                then the wide and the general-shape kernel, f32 and bf16,
+                on that model's own Jacobian and the solve's vectors:
+                equal value for value, and against the f64 product; and
+                every entry point and cuSPARSE timed on that Jacobian
   6. variants — on the effort phase's model and Jacobian, one Mixed
                 solve of J x = -F at tol 1e-3, capped at 150 inner
                 iterations, for each other branch of the BGS sweep
@@ -54,7 +57,11 @@ Phases, each printing its own line:
                 Newton iterations at FGMRES tolerance 5e-2; checks the
                 exit status, that every kernel launch went through the
                 wide f32 kernel, falling |F| and every solve's true
-                relative residual (< the tolerance, so < 1)
+                relative residual (< the tolerance, so < 1).  Then the
+                same run once more with the wrapper made to take the
+                general-shape f32 kernel, held to the same checks; its
+                MV per solve and cdata are printed beside the first
+                run's
   9. transient — (a) time_ocean on a copy of run/ocean/global at full
                 forcing (theta 1, dt 1e-3, adaptive; cut to three time
                 steps, see _spinup_copy): one line per time step (dt,
@@ -65,8 +72,10 @@ Phases, each printing its own line:
                 nonzero.  (b) Two stochastic theta steps of that state
                 (seed of run/2dmoc/ams_params.xml; sigma and Newton
                 tolerance cut, see STOCHASTIC_CUTS): G only on the surface
-                S rows, Newton converged.  (c) Both f32 kernels on
-                the last J - B/(theta dt) against the f64 product.  (d)
+                S rows, Newton converged.  (c) The wide and the
+                general-shape kernel, f32 and bf16, on the last
+                J - B/(theta dt): equal value for value, and against the
+                f64 product.  (d)
                 run_ams's AMS, TAMS and GPA on run/2dmoc's 4x32x16 grid
                 with direct solves, on the card and on the CPU: the same
                 iterations and time steps, probability and MFPT to 1e-8;
@@ -153,9 +162,9 @@ The line before the last is the kernels' JSON record: ms, plain_ms and
 bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
 on the effort phase's periodic 96x38x12 Jacobian, the main path's own
 operator, whose zero coefficients CSR leaves out (the effort line gives
-every entry point's time on it beside cuSPARSE); launches of the main,
-transient, topo, lyapunov, coupled and parallel phases.  The last line is {"ok": true,
-"device": {...}}.
+every entry point's time on it beside cuSPARSE); launches of the main
+phase (both runs), the transient, topo, lyapunov, coupled and parallel
+phases.  The last line is {"ok": true, "device": {...}}.
 Any failed check raises (exit code 1), and a run that outlasts
 WATCHDOG_S seconds prints its stack and exits with code 1.
 """
@@ -449,19 +458,13 @@ def time_ms(fns, reps: int = 21, batches: int = 5) -> float:
     return float(np.median(times))
 
 
-def needed_coefficients(l: int, m: int, n: int, periodic: bool) -> int:
-    """Coefficients of the 972 * l*m*n whose neighbour lies in the grid:
-    the others multiply a zero and need not be read."""
-    return 36 * (3 * l - 2) * (3 * m - 2) * (3 * n if periodic
-                                             else 3 * n - 2)
-
-
 def bound_ms(itemsize: int, l: int, m: int, n: int,
              periodic: bool) -> tuple[float, str]:
     """The least time the card could take for one matvec: the larger of
     the bytes it must move (the needed coefficients and x read once, y
     written once) over the memory rate and its two operations per needed
     coefficient over the f32 rate; and which of the two it is."""
+    from iemic_tpu_torch.ops.stencil_hopper import needed_coefficients
     need = needed_coefficients(l, m, n, periodic)
     t_bytes = (need * itemsize + 2 * 6 * l * m * n * 4) / HBM_BYTES_PER_S
     t_ops = 2 * need / F32_FLOPS
@@ -534,16 +537,56 @@ def _check_kernel(hopper, AnK, x, periodic, what):
     return err, scale
 
 
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """The values of x in a tensor 4 bytes off a 16-byte boundary: the
+    wrapper then takes the general-shape kernel."""
+    return torch.empty(x.numel() + 1, device=x.device,
+                       dtype=x.dtype)[1:].view_as(x).copy_(x)
+
+
+def _general_and_wide(hopper, AnK, x, periodic, what):
+    """The wide kernel's output and the general-shape kernel's on the same
+    values, forced by a misaligned x; fails unless they are equal value
+    for value (the same fmaf chain per output).  Returns both."""
+    _, l, m, n = x.shape
+    wide_entry = hopper.kernel_variant(AnK.dtype, l, m, n)
+    general_entry = wide_entry.removesuffix("_wide")
+    before = dict(hopper.LAUNCHES_BY_ENTRY)
+    wide = hopper.apply_stencil_prepared(AnK, x, periodic=periodic)
+    general = hopper.apply_stencil_prepared(AnK, _misaligned(x),
+                                            periodic=periodic)
+    if not (wide_entry.endswith("_wide")
+            and hopper.LAUNCHES_BY_ENTRY[wide_entry]
+            == before[wide_entry] + 1
+            and hopper.LAUNCHES_BY_ENTRY[general_entry]
+            == before[general_entry] + 1):
+        raise AssertionError(f"{what}: not {wide_entry} and "
+                             f"{general_entry} once each")
+    if not torch.equal(wide, general):
+        raise AssertionError(
+            f"{what}: {general_entry} and {wide_entry} differ in "
+            f"{int((wide != general).sum())} of {wide.numel()} values")
+    return wide, general
+
+
+# the kernel phase's grids: the global grid's rows of 96 (wide in f32 and
+# bf16), rows of 97 and of 100 (wide in f32 only), the 2DMOC fixture's
+# 6x6x3, and rows of 1 and 2 points, where the periodic wrap folds the
+# three di onto one or two columns
+KERNEL_SHAPES = ((12, 38, 96), (12, 38, 97), (12, 38, 100), (6, 6, 3),
+                 (2, 3, 1), (2, 3, 2))
+
+
 def phase_kernel(hopper, card_line: str) -> dict:
     """Every entry point of the kernel library against the plain PyTorch
-    version: the wide kernels at the global grid's shape, the
-    general-shape kernels at shapes the wide ones refuse (a row of 97,
-    and the 2DMOC fixture's 6x6x3), periodic and not, with a random x
-    and with an x kept on the two edge columns in i, where a wrong wrap
-    or zero boundary shows in every term.  Returns the record of each
-    entry point at its first shape, periodic (the bundle's setting)."""
+    version at KERNEL_SHAPES, periodic and not, with a random x and with
+    an x kept on the two edge columns in i, where a wrong wrap or zero
+    boundary shows in every term; where the wide kernel runs, the
+    general-shape kernel on the same values equal to it value for value.
+    Returns the record of each entry point at its first shape, periodic
+    (the bundle's setting)."""
     rec, lib = {}, {}
-    for l, m, n in ((12, 38, 96), (12, 38, 97), (6, 6, 3)):
+    for l, m, n in KERNEL_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(0)
         An = torch.randn((27, 6, 6, l, m, n), generator=g, device="cuda",
                          dtype=torch.float64)
@@ -559,7 +602,7 @@ def phase_kernel(hopper, card_line: str) -> dict:
             for periodic in (False, True):
                 bound, bound_by = bound_ms(AnK.element_size(), l, m, n,
                                            periodic)
-                need = needed_coefficients(l, m, n, periodic) \
+                need = hopper.needed_coefficients(l, m, n, periodic) \
                     * AnK.element_size()
                 before = hopper.LAUNCHES_BY_ENTRY[entry]
                 err, scale = _check_kernel(hopper, AnK, x, periodic, entry)
@@ -568,6 +611,15 @@ def phase_kernel(hopper, card_line: str) -> dict:
                 if hopper.LAUNCHES_BY_ENTRY[entry] != before + 2:
                     raise AssertionError(f"{entry} was not the kernel "
                                          f"launched at {(l, m, n)}")
+                if entry.endswith("_wide"):
+                    for v in (x, edge):
+                        _general_and_wide(hopper, AnK, v, periodic,
+                                          f"kernel at {(l, m, n)}")
+                    print(f"kernel {entry.removesuffix('_wide')} forced by "
+                          f"a misaligned x at shape=(27,6,6,{l},{m},{n}) "
+                          f"periodic={periodic}: equal to {entry} in all "
+                          f"{x.numel()} values, random and edge-column x",
+                          flush=True)
                 ms = time_ms([lambda a=a: hopper.apply_stencil_prepared(
                     a, x, periodic=periodic) for a in copies])
                 plain_ms = time_ms([lambda a=a: hopper.apply_plain(
@@ -580,7 +632,9 @@ def phase_kernel(hopper, card_line: str) -> dict:
                       f"{bound_by} ({100 * bound / ms:.0f}% of bound; "
                       f"{need} coefficient bytes needed) "
                       f"[{card_line}]", flush=True)
-                if periodic and entry not in rec:
+                # cuSPARSE beside each entry point's first shape, and
+                # beside both kernels at the row of 100
+                if periodic and (entry not in rec or n == 100):
                     if (l, m, n) not in lib:
                         lib[(l, m, n)] = library_ms(hopper, An, AnK, x,
                                                     periodic)
@@ -590,9 +644,9 @@ def phase_kernel(hopper, card_line: str) -> dict:
                           f"the same coefficients at {(l, m, n)} periodic: "
                           f"{lib_ms:.4f} ms, against {entry} {ms:.4f} ms "
                           f"[{card_line}]", flush=True)
-                    rec[entry] = dict(
+                    rec.setdefault(entry, dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=bound_by)
+                        bound_ms=bound, bound_by=bound_by))
             if (l, m, n) == (12, 38, 96):
                 # what the card's memory gives in practice: one read of
                 # all coefficients, the skipped ones too, by a PyTorch
@@ -647,50 +701,46 @@ def phase_assembly() -> None:
 
 def _check_model_operator(hopper, o, vectors,
                           what: str = "effort model operator") -> None:
-    """The wide and the general-shape f32 kernel on the model's own
-    masked Jacobian and vectors of its solve, against the f64 product.
-    Each output row A is held to KTOL times the largest sum of |terms|
-    of that row, which is what bounds an f32 sum's round-off: the rows
-    differ by orders of magnitude, and terms cancel."""
+    """The wide and the general-shape kernel, f32 and bf16 coefficients,
+    on the model's own masked Jacobian and vectors of its solve: the two
+    equal value for value, and against the f64 product of the same
+    coefficients.  Each output row A is held to KTOL times the largest
+    sum of |terms| of that row, which is what bounds an f32 sum's
+    round-off: the rows differ by orders of magnitude, and terms
+    cancel."""
     from iemic_tpu_torch.ops.stencil import apply_stencil
     An = o.jac
     _, _, _, l, m, n = An.shape
-    AnK = hopper.prepare(An)
     periodic = o.cfg.periodic
-    for name, v in vectors:
-        x = v.reshape(6, l, m, n).float()
-        # the same values 4 bytes off a 16-byte boundary: the wrapper
-        # then takes the general-shape kernel
-        off = torch.empty(x.numel() + 1, device=x.device,
-                          dtype=x.dtype)[1:].view_as(x).copy_(x)
-        before = dict(hopper.LAUNCHES_BY_ENTRY)
-        wide = hopper.apply_stencil_prepared(AnK, x, periodic=periodic)
-        general = hopper.apply_stencil_prepared(AnK, off, periodic=periodic)
-        if (hopper.LAUNCHES_BY_ENTRY[MAIN_ENTRY] != before[MAIN_ENTRY] + 1
-                or hopper.LAUNCHES_BY_ENTRY["stencil_matvec_f32"]
-                != before["stencil_matvec_f32"] + 1):
-            raise AssertionError("model operator: not the two f32 kernels")
-        plain = hopper.apply_plain(AnK, x, periodic=periodic)
-        AnK64, x64 = AnK.double(), x.double()
-        ref = apply_stencil(AnK64, x64, periodic=periodic)
-        # a row of zeros has error 0 over scale 0
-        scale = apply_stencil(AnK64.abs(), x64.abs(), periodic=periodic
-                              ).amax(dim=(1, 2, 3)).clamp_min(1e-300)
-        errs = {k: (y.double() - ref).abs().amax(dim=(1, 2, 3)) / scale
-                for k, y in (("wide", wide), ("general", general),
-                             ("plain", plain))}
-        print(f"{what} x={name} periodic={periodic}: error "
-              "against the f64 product over the row's largest sum of "
-              "|terms|, rows A=0..5: " + "; ".join(
-                  f"{k} " + " ".join(f"{e:.2e}" for e in v.tolist())
-                  for k, v in errs.items())
-              + f" (limit {KTOL:.0e}); wide and general differ in "
-              f"{int((wide != general).sum())} of {wide.numel()} values",
-              flush=True)
-        for k in ("wide", "general"):
-            if not bool((errs[k] <= KTOL).all()):
-                raise AssertionError(f"{k} kernel disagrees on the model's "
-                                     f"operator, x={name}: {errs[k]}")
+    for dtype in (torch.float32, torch.bfloat16):
+        AnK = hopper.prepare(An, dtype)
+        AnK64 = AnK.double()
+        for name, v in vectors:
+            x = v.reshape(6, l, m, n).float()
+            wide, general = _general_and_wide(
+                hopper, AnK, x, periodic, f"{what} {dtype} x={name}")
+            plain = hopper.apply_plain(AnK, x, periodic=periodic)
+            x64 = x.double()
+            ref = apply_stencil(AnK64, x64, periodic=periodic)
+            # a row of zeros has error 0 over scale 0
+            scale = apply_stencil(AnK64.abs(), x64.abs(), periodic=periodic
+                                  ).amax(dim=(1, 2, 3)).clamp_min(1e-300)
+            errs = {k: (y.double() - ref).abs().amax(dim=(1, 2, 3)) / scale
+                    for k, y in (("wide", wide), ("general", general),
+                                 ("plain", plain))}
+            print(f"{what} {dtype} x={name} periodic={periodic}: error "
+                  "against the f64 product over the row's largest sum of "
+                  "|terms|, rows A=0..5: " + "; ".join(
+                      f"{k} " + " ".join(f"{e:.2e}" for e in v.tolist())
+                      for k, v in errs.items())
+                  + f" (limit {KTOL:.0e}); wide and general equal in all "
+                  f"{wide.numel()} values", flush=True)
+            for k in ("wide", "general"):
+                if not bool((errs[k] <= KTOL).all()):
+                    raise AssertionError(
+                        f"{k} kernel disagrees on the model's operator, "
+                        f"{dtype} x={name}: {errs[k]}")
+        del AnK, AnK64
 
 
 def phase_effort(hopper, card_line: str):
@@ -733,8 +783,7 @@ def _model_library_ms(hopper, o, card_line: str) -> float:
     a 16-byte boundary.  Returns cuSPARSE's ms."""
     periodic = o.cfg.periodic
     x = -o.rhs.float()
-    off = torch.empty(x.numel() + 1, device=x.device,
-                      dtype=x.dtype)[1:].view_as(x).copy_(x)
+    off = _misaligned(x)
     lib_ms, nnz = library_ms(hopper, o.jac, hopper.prepare(o.jac), x,
                              periodic)
     times = {}
@@ -1159,7 +1208,8 @@ def _bundle_copy(tmp: str) -> str:
 def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
     """run_ocean on the cut bundle.  entry is the kernel the run must go
     through: the wrapper's own choice, or the general-shape f32 kernel,
-    which the wrapper is then made to take (see --general-kernel)."""
+    which the wrapper is then made to take.  Returns the launches by
+    entry point, the MV of each solve and the cdata rows."""
     from iemic_tpu_torch.main import run_ocean
 
     choose = hopper.kernel_variant
@@ -1182,20 +1232,21 @@ def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
     finally:
         hopper.kernel_variant = choose
 
-    print(f"main status={status} wall={wall:.1f} s "
+    tag = "main" if entry == MAIN_ENTRY else f"main {entry}"
+    print(f"{tag} status={status} wall={wall:.1f} s "
           f"kernel launches={launches} {by_entry}", flush=True)
     for line in cdata.strip().splitlines():
-        print("main cdata " + line, flush=True)
+        print(f"{tag} cdata " + line, flush=True)
     solves = [(int(a), float(b)) for a, b in re.findall(
         r"FGMRES solve: (\d+) iters, relres=(\S+)", info)]
-    print("main MV per solve " + " ".join(str(s[0]) for s in solves)
+    print(f"{tag} MV per solve " + " ".join(str(s[0]) for s in solves)
           + " | true relres " + " ".join(f"{s[1]:.2e}" for s in solves),
           flush=True)
     pred = [float(v) for v in re.findall(r"predictor: .*\|rhs\|=(\S+)",
                                          info)]
     newton = [float(v) for v in re.findall(r"Newton iter \d+: \|R\|=(\S+)",
                                            info)]
-    print("main |F| predictor " + " ".join(f"{v:.3e}" for v in pred)
+    print(f"{tag} |F| predictor " + " ".join(f"{v:.3e}" for v in pred)
           + " | after each Newton iteration "
           + " ".join(f"{v:.3e}" for v in newton), flush=True)
     prof = {}
@@ -1209,10 +1260,10 @@ def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
                 "Ocean: build preconditioner", "Ocean: solve",
                 "Continuation: Newton"):
         if key in prof:
-            print(f"main timer {key}: {prof[key][0]:.3f} s over "
+            print(f"{tag} timer {key}: {prof[key][0]:.3f} s over "
                   f"{int(prof[key][1])} calls [{card_line}]", flush=True)
     if nits:
-        print(f"main wall per Newton iteration {newton_s / nits:.3f} s "
+        print(f"{tag} wall per Newton iteration {newton_s / nits:.3f} s "
               f"({int(nits)} iterations) [{card_line}]", flush=True)
 
     if status != 0:
@@ -1231,7 +1282,7 @@ def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
             if ln.strip() and not ln.startswith("#")]
     if len(rows) != 1 or not all(np.isfinite(float(v)) for v in rows[0]):
         raise AssertionError(f"expected one finite cdata row: {rows}")
-    return by_entry
+    return dict(launches=by_entry, mv=[mv for mv, _ in solves], cdata=rows)
 
 
 def _spinup_copy(tmp: str) -> str:
@@ -2763,13 +2814,7 @@ def phase_parallel(hopper, card_line: str) -> dict:
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument(
-        "--general-kernel", action="store_true",
-        help="after the main phase, run it once more through the "
-        "general-shape f32 kernel: the two kernels sum in another order, "
-        "so the two MV sequences show what the sequence owes to that")
-    args = parser.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     t_start = time.perf_counter()
@@ -2788,7 +2833,9 @@ def main() -> int:
     print(f"build {os.path.relpath(lib, REPO)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
     rec = phase_kernel(hopper, card_line)
+    print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_assembly()
     print(f"assembly phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2803,13 +2850,22 @@ def main() -> int:
     print(f"eigen phase {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     t0 = time.perf_counter()
-    main_launches = phase_main(hopper, card_line)
+    main_run = phase_main(hopper, card_line)
+    main_launches = main_run["launches"]
     print(f"main phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"main phase launches {main_launches}", flush=True)
-    if args.general_kernel:
-        print("main phase once more, through stencil_matvec_f32:",
-              flush=True)
-        phase_main(hopper, card_line, "stencil_matvec_f32")
+    t0 = time.perf_counter()
+    general_run = phase_main(hopper, card_line, "stencil_matvec_f32")
+    general_launches = general_run["launches"]
+    print(f"main phase through stencil_matvec_f32 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"main phase through stencil_matvec_f32 launches "
+          f"{general_launches}", flush=True)
+    same = all(main_run[k] == general_run[k] for k in ("mv", "cdata"))
+    print(f"main MV per solve {MAIN_ENTRY} {main_run['mv']} | "
+          f"stencil_matvec_f32 {general_run['mv']}; cdata "
+          f"{main_run['cdata']} | {general_run['cdata']} "
+          f"({'the same' if same else 'they differ'})", flush=True)
     t0 = time.perf_counter()
     transient_launches = phase_transient(hopper, card_line)
     print(f"transient phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2838,8 +2894,9 @@ def main() -> int:
         source="iemic_tpu_torch/csrc/stencil_matvec.cu",
         replaces="iemic_tpu/ops/stencil_pallas.py:84",
         launches=sum(phase[entry] for phase in (
-            main_launches, transient_launches, topo_launches,
-            lyapunov_launches, coupled_launches, parallel_launches)),
+            main_launches, general_launches, transient_launches,
+            topo_launches, lyapunov_launches, coupled_launches,
+            parallel_launches)),
         library_ms=jacobian_library_ms, **rec[entry])
         for entry in hopper.ENTRIES]}))
     faulthandler.cancel_dump_traceback_later()

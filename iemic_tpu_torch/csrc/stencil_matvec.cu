@@ -44,9 +44,40 @@
 //   no shared memory and there are no atomics: the sum has one order,
 //   the same from run to run.
 //
-// * The general-shape kernel (`stencil_matvec_f32`, `stencil_matvec_bf16`):
-//   one thread per grid point, scalar loads, any l, m, n and any
-//   alignment.  It takes the shapes the wide kernel refuses.
+// * The general-shape kernel (`stencil_matvec_f32`, `stencil_matvec_bf16`)
+//   for any l, m, n and any element alignment: every call the wide kernel
+//   refuses.  A row of n points is then not a whole number of 16-byte
+//   vectors, and a (p, A, B) plane starts wherever (p*36 + A*6 + B) * N
+//   puts it, so the wide kernel's row-aligned vectors do not exist.  What
+//   the design does instead:
+//   - A lane owns a pair of neighbouring points of the flat index and
+//     GEN_ROWS = 3 output rows A of them; a warp holds 32 neighbouring
+//     pairs, a block the two warps of rows 0-2 and 3-5.  Each warp load
+//     reads 64 consecutive coefficients of one plane (256 bytes in f32,
+//     128 in bf16) wherever the plane starts.
+//   - A pair's coefficients are one 8-byte (f32) or 4-byte (bf16) load
+//     where the pair is aligned to that size, else two loads.  Which
+//     planes are aligned depends only on the parity of An's start (in
+//     elements), of N and of B (the plane index has the parity of B), so
+//     the launch picks one of four instantiations and the choice costs
+//     nothing inside the sum.
+//   - Three rows per lane share the x window: x is loaded once for three
+//     rows and the pair's centres are each other's neighbours.  Three rows
+//     and two points keep 6 accumulators and 162 * 3 fully unrolled
+//     coefficient loads; with __launch_bounds__(64, 6) ptxas gives a
+//     thread 168 registers, most of them loads in flight.
+//   - Each point's (k, j, i), its wrap offsets in i and its in-grid
+//     tests are computed once.  Every load is one predicated instruction
+//     (inline PTX): coefficients whose neighbour leaves the grid in k or
+//     j (or in i when closed) are not read, and a branch around a load
+//     would cut the unrolled sum into blocks ptxas cannot schedule
+//     across.  A coefficient read for its pair partner only multiplies an
+//     x of 0.
+//   - Addresses are a base plus a constant times N: one IMAD.WIDE.U32.
+//   - Each output sums its terms as the wide kernel does, one fmaf chain
+//     from 0 in the order dk = 0, -1, +1; dj; B; di.  Where both kernels
+//     run they give the same value, bit for bit (up to the sign of a
+//     zero sum).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -61,65 +92,210 @@ namespace {
 // general-shape kernel
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// A lane of the general kernel owns a pair of neighbouring points and
+// GEN_ROWS output rows A of them; a block holds the 6 / GEN_ROWS warps of
+// 32 pairs, and GEN_MIN_BLOCKS of them fit an SM (ptxas: 168 registers).
+constexpr int GEN_ROWS = 3;
+constexpr int GEN_THREADS = 6 / GEN_ROWS * 32;
+constexpr int GEN_MIN_BLOCKS = 6;
+
+// Loads under a predicate, as one predicated instruction each (inline
+// PTX): a branch around each load would cut the unrolled sum into blocks
+// that ptxas cannot schedule across, and only few loads would be in
+// flight.  A load whose predicate is false leaves its zero.
+
+// x through L1 (ld.global.nc)
+__device__ __forceinline__ float ldx(bool p, const float* a) {
+  float v = 0.f;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q ld.global.nc.f32 %0, [%1];\n\t}"
+      : "+f"(v) : "l"(a), "r"((int)p));
+  return v;
 }
 
-template <typename T>
-__global__ void stencil_matvec_kernel(const T* __restrict__ An,
-                                      const float* __restrict__ x,
-                                      float* __restrict__ y,
-                                      int l, int m, int n, int periodic) {
-  const long long N = (long long)l * m * n;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N) return;
-  const int i = (int)(idx % n);
-  const int j = (int)((idx / n) % m);
-  const int k = (int)(idx / ((long long)m * n));
+// two neighbouring coefficients of one plane as streaming loads
+// (ld.global.cs, see the wide kernel): one load where the pair is
+// aligned to its size (load2), else one load each (load1)
+template <typename T> struct Pair;
 
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+template <> struct Pair<float> {
+  static __device__ __forceinline__ void load2(bool p, const float* a,
+                                               float (&c)[2]) {
+    c[0] = c[1] = 0.f;
+    asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %3, 0;\n\t"
+        "@q ld.global.cs.v2.f32 {%0, %1}, [%2];\n\t}"
+        : "+f"(c[0]), "+f"(c[1]) : "l"(a), "r"((int)p));
+  }
+  static __device__ __forceinline__ float load1(bool p, const float* a) {
+    float c = 0.f;
+    asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+        "@q ld.global.cs.f32 %0, [%1];\n\t}"
+        : "+f"(c) : "l"(a), "r"((int)p));
+    return c;
+  }
+};
 
-#pragma unroll 1
-  for (int p = 0; p < 27; ++p) {
-    const int q = p % 9;
-    const int di = q / 3 - 1;
-    const int dj = q % 3 - 1;
-    const int dk = (p < 9) ? 0 : ((p < 18) ? -1 : 1);
-    const int k2 = k + dk;
-    const int j2 = j + dj;
-    int i2 = i + di;
-    if (k2 < 0 || k2 >= l || j2 < 0 || j2 >= m) continue;
-    if (i2 < 0 || i2 >= n) {
-      if (!periodic) continue;
-      i2 = (i2 + n) % n;
-    }
-    const long long src = ((long long)k2 * m + j2) * n + i2;
-    float xb[6];
+// a bf16 is the upper half of the f32 of the same value (as in Wide)
+template <> struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ void load2(bool p,
+                                               const __nv_bfloat16* a,
+                                               float (&c)[2]) {
+    unsigned w = 0;
+    asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+        "@q ld.global.cs.b32 %0, [%1];\n\t}"
+        : "+r"(w) : "l"(a), "r"((int)p));
+    c[0] = __uint_as_float(w << 16);
+    c[1] = __uint_as_float(w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ float load1(bool p,
+                                                const __nv_bfloat16* a) {
+    unsigned short h = 0;
+    asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+        "@q ld.global.cs.b16 %0, [%1];\n\t}"
+        : "+h"(h) : "l"(a), "r"((int)p));
+    return __uint_as_float((unsigned)h << 16);
+  }
+};
+
+// BASE_ODD: An does not start on a pair boundary; N_ODD: l*m*n is odd.
+// The pairs of a plane are aligned unless BASE_ODD ^ (N_ODD && B odd):
+// the plane index (p*6 + A)*6 + B has the parity of B.
+template <typename T, bool BASE_ODD, bool N_ODD>
+__global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
+stencil_matvec_general_kernel(const T* __restrict__ An,
+                              const float* __restrict__ x,
+                              float* __restrict__ y,
+                              int l, int m, int n, int periodic) {
+  const int N = l * m * n;
+  const int A0 = threadIdx.x / 32 * GEN_ROWS;   // first output row
+  const int e0 = 2 * (blockIdx.x * 32 + threadIdx.x % 32);
+  // per point e0 + h: in the grid; offsets of the left and right
+  // neighbour in i (wrapped at the row's ends); whether they are read
+  int k[2], j[2], lo[2], ro[2];
+  bool in[2], lok[2], rok[2];
 #pragma unroll
-    for (int B = 0; B < 6; ++B) xb[B] = __ldg(x + B * N + src);
-    const T* a = An + (long long)p * 36 * N + idx;
+  for (int h = 0; h < 2; ++h) {
+    const int e = e0 + h;
+    in[h] = e < N;
+    const int i = e % n;
+    j[h] = e / n % m;
+    k[h] = e / n / m;
+    lo[h] = i > 0 ? -1 : n - 1;
+    ro[h] = i < n - 1 ? 1 : 1 - n;
+    lok[h] = in[h] && (i > 0 || periodic);
+    rok[h] = in[h] && (i < n - 1 || periodic);
+  }
+  // addresses: a base plus a constant times N bytes
+  const unsigned Nu = N;
+  const char* an = (const char*)(An + (size_t)A0 * 6 * N + e0);
+  float acc[GEN_ROWS][2];
 #pragma unroll
-    for (int A = 0; A < 6; ++A) {
+  for (int r = 0; r < GEN_ROWS; ++r) acc[r][0] = acc[r][1] = 0.f;
+
+  // the wide kernel's order: dk = 0, -1, +1; dj; B; di
+#pragma unroll
+  for (int grp = 0; grp < 3; ++grp) {
+    const int dk = grp == 0 ? 0 : (grp == 1 ? -1 : 1);
+#pragma unroll
+    for (int dj = -1; dj <= 1; ++dj) {
+      bool ok[2], need[3][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ok[h] = in[h] && (unsigned)(k[h] + dk) < (unsigned)l &&
+                (unsigned)(j[h] + dj) < (unsigned)m;
+        need[0][h] = ok[h] && lok[h];
+        need[1][h] = ok[h];
+        need[2][h] = ok[h] && rok[h];
+      }
+      // x[s], x[s+1] are the pair's centres and, inside a row, each
+      // other's neighbours; the other neighbours are read apart
+      const bool in_row0 = ro[0] == 1, in_row1 = lo[1] == -1;
+      const bool get0 = ok[0] || (ok[1] && in_row1);
+      const bool get1 = ok[1] || (ok[0] && in_row0);
+      const bool wrap0 = !in_row0 && need[2][0];
+      const bool wrap1 = !in_row1 && need[0][1];
+      const float* xs = x + (e0 + (dk * m + dj) * n);
+      const char* xc = (const char*)xs;
+      const char* xl0 = (const char*)(xs + lo[0]);
+      const char* xr0 = (const char*)(xs + ro[0]);
+      const char* xl1 = (const char*)(xs + 1 + lo[1]);
+      const char* xr1 = (const char*)(xs + 1 + ro[1]);
 #pragma unroll
       for (int B = 0; B < 6; ++B) {
-        acc[A] = fmaf(to_float(a[(A * 6 + B) * N]), xb[B], acc[A]);
+        const size_t xo = (size_t)(4u * B) * Nu;      // x[B]
+        const float c0 = ldx(get0, (const float*)(xc + xo));
+        const float c1 = ldx(get1, (const float*)(xc + xo) + 1);
+        const float w0 = ldx(wrap0, (const float*)(xr0 + xo));
+        const float w1 = ldx(wrap1, (const float*)(xl1 + xo));
+        float xw[2][3];
+        xw[0][0] = ldx(need[0][0], (const float*)(xl0 + xo));
+        xw[0][1] = ok[0] ? c0 : 0.f;
+        xw[0][2] = in_row0 ? (ok[0] ? c1 : 0.f) : w0;
+        xw[1][0] = in_row1 ? (ok[1] ? c0 : 0.f) : w1;
+        xw[1][1] = ok[1] ? c1 : 0.f;
+        xw[1][2] = ldx(need[2][1], (const float*)(xr1 + xo));
+        const bool odd = BASE_ODD ^ (N_ODD && (B & 1));
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {     // di = d - 1
+          const int p = grp * 9 + d * 3 + (dj + 1);
+#pragma unroll
+          for (int r = 0; r < GEN_ROWS; ++r) {
+            const unsigned plane = ((p * 6 + r) * 6 + B) * sizeof(T);
+            const T* a = (const T*)(an + (size_t)plane * Nu);
+            // a coefficient that is not needed multiplies an x of 0
+            float c[2];
+            if (odd) {
+              c[0] = Pair<T>::load1(need[d][0], a);
+              c[1] = Pair<T>::load1(need[d][1], a + 1);
+            } else {
+              Pair<T>::load2(need[d][0] || need[d][1], a, c);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              acc[r][h] = fmaf(c[h], xw[h][d], acc[r][h]);
+          }
+        }
       }
     }
   }
 #pragma unroll
-  for (int A = 0; A < 6; ++A) y[A * N + idx] = acc[A];
+  for (int r = 0; r < GEN_ROWS; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (in[h]) y[(size_t)(A0 + r) * N + e0 + h] = acc[r][h];
+}
+
+template <typename T, bool BASE_ODD, bool N_ODD>
+void launch_general(const void* An, const void* x, void* y, int l, int m,
+                    int n, int periodic, int blocks, cudaStream_t stream) {
+  stencil_matvec_general_kernel<T, BASE_ODD, N_ODD>
+      <<<(unsigned)blocks, GEN_THREADS, 0, stream>>>(
+          (const T*)An, (const float*)x, (float*)y, l, m, n, periodic);
 }
 
 template <typename T>
 int launch(const void* An, const void* x, void* y, int l, int m, int n,
-           int periodic, void* stream) {
+           int periodic, int blocks, int threads, int points,
+           void* stream) {
   const long long N = (long long)l * m * n;
-  const int threads = 128;
-  const long long blocks = (N + threads - 1) / threads;
-  stencil_matvec_kernel<T><<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-      (const T*)An, (const float*)x, (float*)y, l, m, n, periodic);
+  if (l <= 0 || m <= 0 || n <= 0 || N > 0x7fffffffLL - 64)
+    return (int)cudaErrorInvalidValue;
+  if (threads != GEN_THREADS || points != 2 ||
+      (long long)blocks != (N + 63) / 64)
+    return (int)cudaErrorInvalidConfiguration;
+  if ((uintptr_t)An % sizeof(T) != 0 || ((uintptr_t)x | (uintptr_t)y) % 4)
+    return (int)cudaErrorMisalignedAddress;
+  const bool base_odd = (uintptr_t)An % (2 * sizeof(T)) != 0;
+  const bool n_odd = N % 2 != 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (base_odd && n_odd)
+    launch_general<T, true, true>(An, x, y, l, m, n, periodic, blocks, s);
+  else if (base_odd)
+    launch_general<T, true, false>(An, x, y, l, m, n, periodic, blocks, s);
+  else if (n_odd)
+    launch_general<T, false, true>(An, x, y, l, m, n, periodic, blocks, s);
+  else
+    launch_general<T, false, false>(An, x, y, l, m, n, periodic, blocks, s);
   return (int)cudaGetLastError();
 }
 
@@ -251,14 +427,18 @@ int launch_wide(const void* An, const void* x, void* y, int l, int m, int n,
 
 extern "C" int stencil_matvec_f32(const void* An, const void* x, void* y,
                                   int l, int m, int n, int periodic,
+                                  int blocks, int threads, int points,
                                   void* stream) {
-  return launch<float>(An, x, y, l, m, n, periodic, stream);
+  return launch<float>(An, x, y, l, m, n, periodic, blocks, threads,
+                       points, stream);
 }
 
 extern "C" int stencil_matvec_bf16(const void* An, const void* x, void* y,
                                    int l, int m, int n, int periodic,
+                                   int blocks, int threads, int points,
                                    void* stream) {
-  return launch<__nv_bfloat16>(An, x, y, l, m, n, periodic, stream);
+  return launch<__nv_bfloat16>(An, x, y, l, m, n, periodic, blocks,
+                               threads, points, stream);
 }
 
 extern "C" int stencil_matvec_f32_wide(const void* An, const void* x,

@@ -11,9 +11,13 @@ their design does about it.
 The library holds two kernels for each coefficient type (f32, bf16): the
 wide kernel (16-byte coefficient loads, the 972 terms of a point split
 over the threads of a block), for a row length ``n`` divisible by its
-vector width, and the general-shape kernel (one thread per grid point)
-for every other shape.  :func:`kernel_variant` names the entry point a
-call takes.
+vector width and 16-byte aligned tensors, and the general-shape kernel
+(a lane owns a pair of neighbouring points and three output rows A of
+them, a warp 32 neighbouring pairs, so that every warp load reads 64
+consecutive coefficients of a plane whatever its alignment) for every
+other call.  Where both can run they compute the same value, bit for
+bit.  :func:`kernel_variant` names the entry point a call takes, and
+:func:`general_launch` the general kernel's launch geometry.
 
 ``prepare`` is a cast to the coefficient type plus ``.contiguous()``:
 the natural layout is already contiguous in ``i``, which is what both
@@ -48,6 +52,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # points per 16-byte coefficient load of the wide kernel
 WIDE_VEC = {torch.float32: 4, torch.bfloat16: 8}
+# the general kernel: a lane owns a pair of neighbouring points and
+# GENERAL_ROWS output rows A of them, a block the 6 / GENERAL_ROWS warps
+# of 32 pairs (GEN_ROWS in the source, which refuses any other geometry)
+WARP = 32
+GENERAL_ROWS = 3
 ENTRIES = tuple(f"stencil_matvec_{tag}{wide}" for tag in _TAG.values()
                 for wide in ("_wide", ""))
 
@@ -77,6 +86,22 @@ def kernel_variant(dtype, l: int, m: int, n: int) -> str:
         raise ValueError(f"stencil_hopper: grid {(l, m, n)}")
     wide = "_wide" if n % WIDE_VEC[dtype] == 0 else ""
     return f"stencil_matvec_{_TAG[dtype]}{wide}"
+
+
+def general_launch(l: int, m: int, n: int) -> tuple[int, int, int]:
+    """(blocks, threads, points per thread) of the general kernel on an
+    (l, m, n) grid, for either coefficient type.  Thread t of block b
+    computes the output rows A = (t // 32) * GENERAL_ROWS + r,
+    r < GENERAL_ROWS, at the flat points (k*m + j)*n + i
+    = 64*b + 2*(t % 32) + h, h < 2, that lie in the grid."""
+    return -(-(l * m * n) // (2 * WARP)), 6 // GENERAL_ROWS * WARP, 2
+
+
+def needed_coefficients(l: int, m: int, n: int, periodic: bool) -> int:
+    """Coefficients of the 972 * l*m*n whose neighbour lies in the grid:
+    the others multiply a zero, and neither kernel reads them."""
+    return 36 * (3 * l - 2) * (3 * m - 2) * (3 * n if periodic
+                                             else 3 * n - 2)
 
 
 def _nvcc() -> str:
@@ -116,9 +141,11 @@ def _lib():
         lib = ctypes.CDLL(build())
         for name in ENTRIES:
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            # An, x, y; l, m, n, periodic; the general kernel's blocks,
+            # threads and points per lane; the stream
+            geometry = [] if name.endswith("_wide") else [ctypes.c_int] * 3
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+                + geometry + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -165,10 +192,13 @@ def apply_stencil_prepared(AnK: torch.Tensor, x: torch.Tensor, *,
     if entry.endswith("_wide") and any(
             t.data_ptr() % 16 for t in (AnK, x, y)):
         entry = entry[:-len("_wide")]
+    geometry = () if entry.endswith("_wide") else \
+        general_launch(l, m, n)
     global LAUNCHES
     err = getattr(_lib(), entry)(
         AnK.data_ptr(), x.data_ptr(), y.data_ptr(), l, m, n,
-        int(periodic), torch.cuda.current_stream(x.device).cuda_stream)
+        int(periodic), *geometry,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stencil_hopper: {entry} launch failed "
                            f"(cudaError {err})")

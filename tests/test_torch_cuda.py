@@ -43,8 +43,10 @@ def test_kernel_matches_plain_on_card():
 
 
 # every entry point of the library: (l, m, n) and the coefficient type
-# that reach it (8x8x4 grids as (l, m, n) = (4, 8, 8); n = 12 is wide in
-# f32 only; n = 3 is the 2DMOC fixture's row, n = 7 an odd one)
+# that reach it (8x8x4 grids as (l, m, n) = (4, 8, 8); n = 12 and n = 100
+# are wide in f32 only; n = 3 is the 2DMOC fixture's row, n = 7 an odd
+# one; at n = 1 and n = 2 the periodic wrap folds the three di onto one or
+# two columns)
 ENTRY_CASES = [
     ((4, 8, 8), "float32", "stencil_matvec_f32_wide"),
     ((4, 8, 8), "bfloat16", "stencil_matvec_bf16_wide"),
@@ -54,6 +56,11 @@ ENTRY_CASES = [
     ((6, 6, 3), "bfloat16", "stencil_matvec_bf16"),
     ((3, 5, 7), "float32", "stencil_matvec_f32"),
     ((3, 5, 7), "bfloat16", "stencil_matvec_bf16"),
+    ((2, 3, 100), "bfloat16", "stencil_matvec_bf16"),
+    ((2, 3, 1), "float32", "stencil_matvec_f32"),
+    ((2, 3, 1), "bfloat16", "stencil_matvec_bf16"),
+    ((2, 3, 2), "float32", "stencil_matvec_f32"),
+    ((2, 3, 2), "bfloat16", "stencil_matvec_bf16"),
 ]
 
 
@@ -105,6 +112,67 @@ def test_unaligned_tensor_takes_general_kernel_on_card():
     torch.testing.assert_close(
         y, stencil_hopper.apply_plain(AnK, x, periodic=True),
         rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 5, 7), (3, 5, 6)])
+def test_general_kernel_at_any_alignment_on_card(shape, dtype, periodic):
+    """Coefficients at their usual start and one element off it, at an
+    odd and an even l*m*n (rows the wide kernel refuses): the four
+    alignments of the general kernel's coefficient pairs, against the
+    plain version."""
+    rng = np.random.default_rng(14)
+    l, m, n = shape
+    An = torch.as_tensor(rng.standard_normal((27, 6, 6, l, m, n))).cuda()
+    x = torch.as_tensor(rng.standard_normal((6, l, m, n))).cuda().float()
+    entry = stencil_hopper.kernel_variant(dtype, l, m, n)
+    assert not entry.endswith("_wide")
+    for shift in (0, 1):
+        buf = torch.empty(An.numel() + shift, device="cuda", dtype=dtype)
+        AnK = buf[shift:].view(An.shape).copy_(An)
+        before = stencil_hopper.LAUNCHES_BY_ENTRY[entry]
+        y = stencil_hopper.apply_stencil_prepared(AnK, x, periodic=periodic)
+        torch.cuda.synchronize()
+        assert stencil_hopper.LAUNCHES_BY_ENTRY[entry] == before + 1
+        torch.testing.assert_close(
+            y, stencil_hopper.apply_plain(AnK, x, periodic=periodic),
+            rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_kernel_equals_wide_on_card(dtype, periodic):
+    """Where both kernels run, the general one (forced by an x 4 bytes off
+    a 16-byte boundary) sums each output in the wide one's order: equal
+    value for value, random and edge-column x."""
+    rng = np.random.default_rng(15)
+    l, m, n = 4, 8, 16
+    An = torch.as_tensor(rng.standard_normal((27, 6, 6, l, m, n))).cuda()
+    AnK = stencil_hopper.prepare(An, dtype)
+    x = rng.standard_normal((6, l, m, n))
+    edge = np.zeros_like(x)
+    edge[..., 0], edge[..., -1] = x[..., 0], x[..., -1]
+    for v in (x, edge):
+        v = torch.as_tensor(v, dtype=torch.float32).cuda()
+        off = torch.empty(v.numel() + 1, device="cuda")[1:].view_as(v)
+        off.copy_(v)
+        before = dict(stencil_hopper.LAUNCHES_BY_ENTRY)
+        wide = stencil_hopper.apply_stencil_prepared(AnK, v,
+                                                     periodic=periodic)
+        general = stencil_hopper.apply_stencil_prepared(AnK, off,
+                                                        periodic=periodic)
+        torch.cuda.synchronize()
+        after = stencil_hopper.LAUNCHES_BY_ENTRY
+        assert {k for k in after if after[k] != before[k]} == {
+            stencil_hopper.kernel_variant(dtype, l, m, n),
+            stencil_hopper.kernel_variant(dtype, l, m, n).removesuffix(
+                "_wide")}
+        assert torch.equal(wide, general)
 
 
 @pytest.mark.cuda
