@@ -134,7 +134,15 @@ Phases, each printing its own line:
                 Ocean.apply_matrix to 1e-12, the sharded Double solve at
                 1e-2 (MV, relres, true relres, seconds) beside the serial
                 Ocean.solve in Double at 1e-2, the sharded Mixed solve at
-                2e-2; the dry run's stage 3 at 96x38x12 (one continuation
+                2e-2, both through the partitioned BGS sweep, and one
+                partitioned sweep of -F with one saddle iteration and one
+                with the solve's thirty; for each, the bytes of the
+                stencil tensor and the factor set, the peak device memory,
+                build seconds, seconds per sweep, message rounds and
+                bytes of whole fields summed over the ranks in the build
+                and per sweep, and
+                whether the saddle iteration replays CUDA graphs or runs
+                eagerly; the dry run's stage 3 at 96x38x12 (one continuation
                 step of a ShardedOcean from rest at Combined Forcing 0 on
                 the BGS/Double solve at 5e-2, at most three Newton
                 iterations) held to the serial Continuation on an Ocean
@@ -146,9 +154,15 @@ Phases, each printing its own line:
                 sharded matvec; the gathered partitioned F and An against
                 the serial ones to 1e-13, per rank the seconds of the
                 partitioned residual and Jacobian and of a 2-deep
-                exchange with its bytes; then the dry run's three stages
+                exchange with its bytes; the two partitioned sweeps of (a)
+                on each rank grid, held to (a)'s (PARALLEL_SWEEPS' bounds),
+                each rank's bytes no more than (a)'s / 4 plus the pieces
+                held whole on every rank, and the same per-rank lines as
+                in (a); then the dry run's three stages
                 at 96x38x12 (stage 2 fails the run if it misses 2e-2),
                 per rank MV, outer iterations, true relres and seconds,
+                the per-rank lines of each stage's BGS preconditioner,
+                none of whose builds may gather,
                 stage 1's Newton update held to (a)'s within the two
                 solves' tolerances (|J (z4 - z1)| <= 2e-2 |F|), stage 3's
                 step on 2x2 (every solve's MV, relres and seconds per
@@ -415,6 +429,14 @@ PARALLEL_STEP_TOL = 1e-12
 # the four-rank step against the one-rank step: the bounds of the JAX
 # package's tests/test_parallel.py:303-306
 PARALLEL_PAR_TOL, PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, 1e-3, 1e-6
+# the partitioned BGS sweeps of -F at the effort state on four ranks
+# against the one-rank sweep, relative to its largest entry: with one
+# saddle iteration only the rounding of the sums over the ranks differs
+# (1.8e-15 to 2.0e-15 on the card); with the sharded solve's thirty the
+# rounding grows through the inner FGMRES (1.7e-9 on the card at this
+# grid, whose saddle converges; PERF.md §6, PR 10)
+PARALLEL_SWEEPS = {"one saddle iteration": ({"nit_spp": 1}, 1e-10),
+                   "the solve's sweep": ({}, 1e-6)}
 # the serial Ocean whose BGS/Double solve is the sharded one's (bgs.apply's
 # inner budget, ATS multigrid, no row scaling)
 PARALLEL_SERIAL_PREC = {"Saddlepoint iterations": 30,
@@ -2560,6 +2582,14 @@ def _print_step(tag: str, step: dict, card_line: str) -> None:
           f"(MV, relres, s): {solves} [{card_line}]", flush=True)
 
 
+def _print_bgs(tag: str, stats: dict, peak, card_line: str) -> None:
+    """A partitioned BGS preconditioner's per-rank line."""
+    from iemic_tpu_torch.parallel.bgs import format_stats
+    mem = "not measured" if peak is None else f"{peak / 1e9:.3f} GB"
+    print(f"{tag}: {format_stats(stats)}; peak device memory {mem} "
+          f"[{card_line}]", flush=True)
+
+
 def _parallel_one_rank(multichip, card_line: str):
     """(a): one NCCL rank on the card, a 1x1 Domain of the masked global
     model at the effort phase's state.  The sharded ops are made before
@@ -2567,12 +2597,15 @@ def _parallel_one_rank(multichip, card_line: str):
     stage 1; the Mixed solve after it, as stage 2.  The partitioned F and
     An against the serial ones there and at a random state; the dry run's
     stage 3 at PARALLEL_GRID (a ShardedOcean continuation step) against
-    the serial Continuation on an Ocean with the same solve.  Returns F,
-    the Jacobian, the Double solve's update and the step, for (b)."""
+    the serial Continuation on an Ocean with the same solve; the
+    partitioned sweeps of PARALLEL_SWEEPS.  Returns F, the Jacobian, the
+    Double solve's update, the step and the sweeps (by name: the sweep
+    and the stats), for (b)."""
     import torch.distributed as dist
     from iemic_tpu_torch.continuation import Continuation
     from iemic_tpu_torch.models.ocean import Ocean
     from iemic_tpu_torch.parallel import Domain, make_sharded_ops
+    from iemic_tpu_torch.parallel.bgs import PartitionedBGS, int_row_of
     from iemic_tpu_torch.parallel.halo import make_sharded_solve
     from iemic_tpu_torch.parallel.multihost import initialize_environment
 
@@ -2607,11 +2640,24 @@ def _parallel_one_rank(multichip, card_line: str):
         y = ops["matvec"](An, -F)
         ref = o.apply_matrix(-o.rhs)
         gap = float((y - ref).abs().max() / ref.abs().max())
+        sweeps = {}
+        for name, (opts, _) in PARALLEL_SWEEPS.items():
+            torch.cuda.reset_peak_memory_stats()
+            prec = PartitionedBGS(An, o.landm, dom,
+                                  int_row=int_row_of(o, float(o.cfg.int_sign)),
+                                  apply_opts=opts, held=(An,))
+            z = prec(-F)
+            sweeps[name] = (z.cpu().numpy(), prec.stats(),
+                            torch.cuda.max_memory_allocated())
+            del prec
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = ops["solve"](An, -F, tol1, multichip.STAGE1_ITERS)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        double = (multichip._bgs_stats(ops["solve"]),
+                  torch.cuda.max_memory_allocated())
         true = float(torch.linalg.norm(F + ops["matvec"](An, res.x))
                      / torch.linalg.norm(F))
         t0 = time.perf_counter()
@@ -2623,11 +2669,14 @@ def _parallel_one_rank(multichip, card_line: str):
         mixed = make_sharded_solve(o, dom, precision="Mixed",
                                    apply_opts=multichip.STAGE2_APPLY,
                                    inner_tol=multichip.STAGE2_INNER_TOL)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res2 = mixed(dom.shard_stencil(o.jac), dom.shard_state(-o.rhs), tol2,
                      multichip.STAGE2_ITERS)
         torch.cuda.synchronize()
         msec = time.perf_counter() - t0
+        mixed_bgs = (multichip._bgs_stats(mixed),
+                     torch.cuda.max_memory_allocated())
         backend = dom.backend
 
         # the dry run's stage 3 at PARALLEL_GRID, and the serial step
@@ -2664,8 +2713,15 @@ def _parallel_one_rank(multichip, card_line: str):
     print(f"parallel (a) sharded Mixed solve (tol {tol2:g}): {res2.mv} MV, "
           f"{res2.outer} outer, relres {res2.relres:.3e}, {msec:.3f} s "
           f"[{card_line}]", flush=True)
+    _print_bgs("parallel (a) Double solve's", *double, card_line)
+    _print_bgs("parallel (a) Mixed solve's", *mixed_bgs, card_line)
+    for name, (_, stats, peak) in sweeps.items():
+        _print_bgs(f"parallel (a) sweep of -F, {name}", stats, peak,
+                   card_line)
     _print_step("parallel (a) ShardedOcean continuation step", step,
                 card_line)
+    _print_bgs("parallel (a) ShardedOcean step's", step["bgs"], None,
+               card_line)
     par_gap = abs(step["par"] - spar)
     state_gap = float(np.abs(step["state"] - sx).max()
                       / max(np.abs(sx).max(), 1e-300))
@@ -2688,7 +2744,41 @@ def _parallel_one_rank(multichip, card_line: str):
             and state_gap <= PARALLEL_STEP_TOL):
         raise AssertionError("parallel (a): the ShardedOcean step is not "
                              "the serial one")
-    return -F, o.apply_matrix, res.x, step
+    return -F, o.apply_matrix, res.x, step, sweeps
+
+
+def _parallel_sweeps(out, k0: int, sweeps: dict, card_line: str) -> None:
+    """(b)'s partitioned sweeps (job_bgs results from job k0 on) against
+    (a)'s one-rank sweeps, per rank grid of PARALLEL_SHAPES, and each
+    rank's bytes against (a)'s / PARALLEL_RANKS plus its pieces held
+    whole."""
+    names = list(PARALLEL_SWEEPS)
+    for k, shape in enumerate(PARALLEL_SHAPES):
+        for rank, r in enumerate(out):
+            res = r[k0 + k]
+            for name, sw in zip(names, res["sweeps"]):
+                z1, stats1, _ = sweeps[name]
+                st = sw["stats"]
+                gap = float(np.abs(sw["z"] - z1).max() / np.abs(z1).max())
+                bound = stats1["bytes"] / PARALLEL_RANKS \
+                    + st["replicated_bytes"]
+                _print_bgs(f"parallel (b) {shape[0]}x{shape[1]} rank {rank} "
+                           f"({res['ry']},{res['rx']}) sweep of -F, {name}",
+                           st, res["peak"], card_line)
+                print(f"parallel (b) {shape[0]}x{shape[1]} rank {rank} "
+                      f"sweep of -F, {name}: against (a)'s {gap:.3e} (limit "
+                      f"{PARALLEL_SWEEPS[name][1]:g}); {st['bytes']} bytes, "
+                      f"(a)'s / {PARALLEL_RANKS} plus the pieces held whole "
+                      f"{bound:.0f}", flush=True)
+                if not (np.isfinite(sw["z"]).all()
+                        and gap <= PARALLEL_SWEEPS[name][1]):
+                    raise AssertionError(f"parallel (b) {shape}: the "
+                                         f"partitioned sweep ({name}) is "
+                                         f"{gap:.3e} from (a)'s")
+                if not (st["bytes"] <= bound and st["build_gathers"] == 0):
+                    raise AssertionError(f"parallel (b) {shape}: rank "
+                                         f"{rank} holds {st['bytes']} bytes "
+                                         f"or gathered in its build")
 
 
 def phase_parallel(hopper, card_line: str) -> dict:
@@ -2710,7 +2800,7 @@ def phase_parallel(hopper, card_line: str) -> dict:
         raise AssertionError("decomp2d's rank grid changed")
     hopper.reset_launches()
     t0 = time.perf_counter()
-    b, apply_J, z1, step1 = _parallel_one_rank(multichip, card_line)
+    b, apply_J, z1, step1, sweeps = _parallel_one_rank(multichip, card_line)
     print(f"parallel (a) {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -2721,6 +2811,9 @@ def phase_parallel(hopper, card_line: str) -> dict:
             for shape in PARALLEL_SHAPES]
     jobs += [("assembly", dict(thcm=GLOBAL_THCM, shape=shape, x=xr,
                                gathered=False, timed=True))
+             for shape in PARALLEL_SHAPES]
+    jobs += [("bgs", dict(thcm=GLOBAL_THCM, shape=shape, f32=False,
+                          cases=[o for o, _ in PARALLEL_SWEEPS.values()]))
              for shape in PARALLEL_SHAPES]
     jobs += [("dryrun", {"grid": PARALLEL_GRID}), ("launches", {})]
     out = multichip.run_ranks(PARALLEL_RANKS, jobs, device="cuda",
@@ -2757,8 +2850,14 @@ def phase_parallel(hopper, card_line: str) -> dict:
                 raise AssertionError(f"parallel (b) {shape}: partitioned "
                                      f"assembly gaps {a['F_gap']:.3e} "
                                      f"{a['An_gap']:.3e}")
+    _parallel_sweeps(out, 2 * k0, sweeps, card_line)
     ranks = [dict(r[-2], launches=r[-1]) for r in out]
     multichip.print_ranks(ranks, "parallel (b) dry run")
+    built = [st for r in ranks for st in (r["bgs"], r["mixed_bgs"],
+                                          r["step"]["bgs"])]
+    if not all(st is not None and st["build_gathers"] == 0 for st in built):
+        raise AssertionError("parallel (b): a stage of the dry run built "
+                             "no partitioned BGS or gathered in its build")
     for r in ranks:
         _print_step(f"parallel (b) dry run stage 3, rank {r['rank']} "
                     f"({r['ry']},{r['rx']})", r["step"], card_line)

@@ -281,23 +281,28 @@ def job_ops(device, thcm, shape, x=None, v=None, timed=False):
 
 
 def job_solve(device, thcm, shape, x, tol, maxiter, landm=None,
-              precision="Double"):
+              precision="Double", apply_opts=None):
     """A sharded solve of J z = -F at the state x (F and J computed on the
-    whole ocean, as the JAX tests do): the gathered z, MV, relres, outer
-    iterations and seconds."""
+    whole ocean, as the JAX tests do), with the domain's gather refusing
+    inside it: the gathered z, MV, relres, outer iterations, seconds and
+    the BGS preconditioner's stats."""
     from ..parallel import make_sharded_solve
     dom = _ocean_domain(device, thcm, shape)
     ocean = _ocean(dom.device, thcm, landm, state=x)
     ocean.compute_rhs()
     ocean.compute_jacobian()
-    solve = make_sharded_solve(ocean, dom, precision=precision)
+    An_l, b_l = dom.shard_stencil(ocean.jac), dom.shard_state(-ocean.rhs)
+    dom.gather = _refuse_gather
+    solve = make_sharded_solve(ocean, dom, precision=precision,
+                               apply_opts=apply_opts)
     t0 = time.perf_counter()
-    res = solve(dom.shard_stencil(ocean.jac), dom.shard_state(-ocean.rhs),
-                tol, maxiter)
+    res = solve(An_l, b_l, tol, maxiter)
     _sync(dom.device)
+    seconds = time.perf_counter() - t0
+    del dom.gather
     return {"z": dom.gather(res.x).cpu().numpy(), "mv": res.mv,
-            "relres": res.relres, "outer": res.outer,
-            "seconds": time.perf_counter() - t0}
+            "relres": res.relres, "outer": res.outer, "seconds": seconds,
+            "bgs": _bgs_stats(solve)}
 
 
 def job_newton(device, thcm, shape, x, tol, maxiter, landm=None):
@@ -314,7 +319,14 @@ def job_newton(device, thcm, shape, x, tol, maxiter, landm=None):
 
 
 def _refuse_gather(*args, **kw):
-    raise AssertionError("the partitioned assembly gathered")
+    raise AssertionError("a partitioned path gathered")
+
+
+def _bgs_stats(solve) -> dict | None:
+    """The stats of a sharded solve's last BGS preconditioner (None for
+    the Columns solve and before the first solve)."""
+    prec = getattr(solve, "preconditioner", lambda: None)()
+    return None if prec is None else prec.stats()
 
 
 def job_assembly(device, thcm, shape, x, landm=None, gathered=True,
@@ -355,6 +367,57 @@ def job_assembly(device, thcm, shape, x, landm=None, gathered=True,
     return out
 
 
+def job_bgs(device, thcm, shape, An=None, r=None, landm=None,
+            cases=({},), f32=True):
+    """The partitioned BGS preconditioner (``parallel.bgs``) built and
+    applied on this rank's block of the rank grid shape, on the ocean of
+    thcm and landm (its integral-condition row), with the domain's gather
+    refusing in the builds and sweeps.  An and r are the whole stencil
+    tensor and vector; without them this rank's block of the Jacobian at
+    the ocean's state (the partitioned assembly) and r = -F.  For each
+    apply_opts of cases, the gathered sweep of r and the preconditioner's
+    stats; with f32, also the f32 sweep of the first case's factors cast
+    as the Mixed solve casts them.  On the card, the peak of the device
+    memory this rank allocated from the first build on."""
+    from ..parallel import make_sharded_ops
+    from ..parallel.bgs import PartitionedBGS, int_row_of
+    dom = _ocean_domain(device, thcm, shape)
+    ocean = _ocean(dom.device, thcm, landm)
+    if An is None:
+        ops = make_sharded_ops(ocean, dom)
+        x_l = dom.shard_state(ocean.state)
+        An_l = ops["jac"](x_l, ocean.par)
+        r_l = -ops["rhs"](x_l, ocean.par)
+    else:
+        An_l = dom.shard_stencil(torch.as_tensor(An, device=dom.device))
+        r_l = dom.shard_state(torch.as_tensor(r, device=dom.device))
+    int_row = int_row_of(ocean, float(ocean.cfg.int_sign))
+    cuda = dom.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dom.device)
+    dom.gather = _refuse_gather
+    sweeps = []
+    for k, opts in enumerate(cases):
+        prec = PartitionedBGS(An_l, ocean.landm, dom, int_row=int_row,
+                              apply_opts=opts, held=(An_l,))
+        z = prec(r_l)
+        z32 = None
+        if f32 and k == 0:
+            z32 = PartitionedBGS(An_l, ocean.landm, dom, int_row=int_row,
+                                 dtype=torch.float32, apply_opts=opts)(
+                r_l.to(torch.float32))
+        sweeps.append((z, z32, prec.stats()))
+        del prec
+    del dom.gather
+    return {"ry": dom.ry, "rx": dom.rx,
+            "peak": torch.cuda.max_memory_allocated(dom.device) if cuda
+            else None,
+            "sweeps": [{"z": dom.gather(z).cpu().numpy(),
+                        "z32": None if z32 is None
+                        else dom.gather(z32).cpu().numpy(),
+                        "stats": st} for z, z32, st in sweeps]}
+
+
 def job_columns(device, thcm, shape, x, v, group=None):
     """The column-block preconditioner built and applied on this rank's
     block of the Jacobian at x (no gather), on the block of v: the
@@ -391,8 +454,9 @@ def sharded_continuation(dom, thcm, solver, cont, x=None, comb=None,
     and solver from the state x (rest without it), spun up serially to
     Combined Forcing comb where given; cdata names this rank's cdata
     file.  Returns the result's status, steps and par, the gathered
-    state, the Newton iterations, every solve's (MV, relres, seconds)
-    and the seconds of the run, of each residual and of each Jacobian."""
+    state, the Newton iterations, every solve's (MV, relres, seconds),
+    the seconds of the run, of each residual and of each Jacobian, and
+    the stats of the last BGS preconditioner (None for Columns)."""
     from ..continuation import Continuation
     from ..parallel import ShardedOcean
     from ..utils import logging as log
@@ -428,7 +492,7 @@ def sharded_continuation(dom, thcm, solver, cont, x=None, comb=None,
             "par": model.get_par(cont["continuation parameter"]),
             "state": model.gather_state().cpu().numpy(),
             "solves": solves, "seconds": seconds, "rhs_s": rhs_s,
-            "jac_s": jac_s}
+            "jac_s": jac_s, "bgs": _bgs_stats(model._solve)}
 
 
 def job_continuation(device, thcm, shape, solver, cont, x=None, comb=None,
@@ -479,7 +543,8 @@ def job_modules(device):
 
 def job_dryrun(device, grid=None):
     """The dry run's three stages on the group's ranks; rank 0 prints a
-    line per stage.  Returns this rank's numbers, and on rank 0 the
+    line per stage.  Returns this rank's numbers, among them the stats of
+    stage 1's and stage 2's BGS preconditioners, and on rank 0 the
     gathered Newton update of stage 1 and the state after stage 3's
     step (``step``: sharded_continuation's result)."""
     from ..parallel import halo_pad_shard, make_sharded_ops
@@ -567,6 +632,8 @@ def job_dryrun(device, grid=None):
             "halo_bytes": halo_bytes, "matvec_s": matvec_s,
             "mixed_mv": res2.mv, "mixed_outer": res2.outer,
             "mixed_relres": res2.relres, "mixed_s": mixed_s,
+            "bgs": _bgs_stats(ops["solve"]),
+            "mixed_bgs": _bgs_stats(solve_mixed),
             "update": update.cpu().numpy() if dom.rank == 0 else None,
             "step": dict(step, state=step["state"] if dom.rank == 0
                          else None)}
@@ -574,6 +641,7 @@ def job_dryrun(device, grid=None):
 
 JOBS = {"halo": job_halo, "stencil": job_stencil, "ops": job_ops,
         "solve": job_solve, "newton": job_newton, "gate": job_gate,
+        "bgs": job_bgs,
         "assembly": job_assembly, "columns": job_columns,
         "continuation": job_continuation,
         "launches": job_launches, "modules": job_modules,
@@ -646,7 +714,9 @@ def dryrun_multichip(n_ranks: int, device="cuda", grid=None,
 
 
 def print_ranks(ranks: list[dict], tag: str = "dryrun_multichip") -> None:
-    """One line per rank of the dry run's numbers."""
+    """One line per rank of the dry run's numbers, and one per BGS
+    preconditioner of its stages."""
+    from ..parallel.bgs import format_stats
     for r in ranks:
         print(f"{tag} rank {r['rank']} ({r['ry']},{r['rx']}) {r['device']}: "
               f"halo exchange {r['halo_s'] * 1e3:.3f} ms, "
@@ -657,6 +727,12 @@ def print_ranks(ranks: list[dict], tag: str = "dryrun_multichip") -> None:
               f"Mixed solve {r['mixed_mv']} MV, {r['mixed_outer']} outer, "
               f"relres {r['mixed_relres']:.3e}, {r['mixed_s']:.3f} s",
               flush=True)
+        for stage, key in (("1", "bgs"), ("2", "mixed_bgs")):
+            print(f"{tag} rank {r['rank']} stage {stage} "
+                  f"{format_stats(r[key])}", flush=True)
+        if r["step"]["bgs"] is not None:
+            print(f"{tag} rank {r['rank']} stage 3 "
+                  f"{format_stats(r['step']['bgs'])}", flush=True)
 
 
 def main(argv=None) -> int:

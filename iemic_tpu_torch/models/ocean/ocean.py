@@ -163,17 +163,23 @@ class OceanConfig:
     mic: int            # integral condition cell j (0-based)
 
 
-def _to_dtype(obj, dtype):
+def _to_dtype(obj, dtype, memo=None):
     """Cast every floating tensor of a factor tree (NamedTuples, tuples,
-    lists, dicts) to dtype; other leaves are kept."""
+    lists, dicts) to dtype, a tensor the tree holds twice (ATS and its
+    multigrid's finest level) once; other leaves are kept."""
+    memo = {} if memo is None else memo
     if isinstance(obj, torch.Tensor):
-        return obj.to(dtype) if obj.is_floating_point() else obj
+        if not obj.is_floating_point():
+            return obj
+        if id(obj) not in memo:
+            memo[id(obj)] = obj.to(dtype)
+        return memo[id(obj)]
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(_to_dtype(v, dtype) for v in obj))
+        return type(obj)(*(_to_dtype(v, dtype, memo) for v in obj))
     if isinstance(obj, (tuple, list)):
-        return type(obj)(_to_dtype(v, dtype) for v in obj)
+        return type(obj)(_to_dtype(v, dtype, memo) for v in obj)
     if isinstance(obj, dict):
-        return {k: _to_dtype(v, dtype) for k, v in obj.items()}
+        return {k: _to_dtype(v, dtype, memo) for k, v in obj.items()}
     return obj
 
 

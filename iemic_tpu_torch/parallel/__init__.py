@@ -9,8 +9,9 @@ grid, and the stencil matvec exchanges explicit halos between neighbours
 with ``torch.distributed`` point-to-point messages (periodic wraparound in
 x included, reference TRIOS_Domain.H:337-340).  The residual and the
 Jacobian are assembled on each block extended by a 2-deep halo
-(``assembly``), and ``ShardedOcean`` runs a continuation on the split
-state.
+(``assembly``), the block Gauss-Seidel preconditioner is factored and
+applied on each block (``bgs``), and ``ShardedOcean`` runs a continuation
+on the split state.
 """
 
 from .domain import Domain, decomp2d

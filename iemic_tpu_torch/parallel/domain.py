@@ -158,8 +158,9 @@ class Domain:
                      if rx > 0 or wrap else None)
         self.east = (self.grid[ry][(rx + 1) % px]
                      if rx < px - 1 or wrap else None)
-        # bytes this rank has sent in halo exchanges
+        # bytes this rank has sent in halo exchanges, and its gathers
         self.sent_bytes = 0
+        self.gathers = 0
 
     def _global(self, group_rank: int) -> int:
         if self.group is None or self.size == 1:
@@ -258,6 +259,7 @@ class Domain:
         """The global (..., m, n) tensor from every rank's (..., ml, nl)
         block, on every rank (the reference's Utils::AllGather,
         Utils.H:352-391)."""
+        self.gathers += 1
         if self.size == 1:
             return x.clone()
         comm = torch.device("cpu") if self.staged else self.device

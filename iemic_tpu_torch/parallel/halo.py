@@ -27,13 +27,12 @@ Torch has no GSPMD.  Where the JAX package jits the residual and the
 Jacobian with sharded inputs and lets XLA partition them, every rank here
 evaluates the serial assembly on its block extended by a 2-deep halo
 (:mod:`.assembly`, ``halo_extend`` at depth 2).  The column-block
-preconditioner is local to each rank, since z is never partitioned.  The
-block-GS factor build and sweep still run on the gathered global tensor
-on every rank (replicated work, correct on any decomposition; the open
-item of partitioning them stands in ROADMAP).  What is distributed is
-the Krylov solve: each rank holds its block of every Krylov vector, the
-matvec exchanges halos, and every inner product and norm is a sum over
-ranks (``Domain.allreduce``).
+preconditioner is local to each rank, since z is never partitioned; the
+block-GS factors are built and the sweep applied on each rank's block
+(:mod:`.bgs`), with no gather of the stencil tensor.  The Krylov solve is
+distributed the same way: each rank holds its block of every Krylov
+vector, the matvec exchanges halos, and every inner product and norm is a
+sum over ranks (``Domain.allreduce``).
 """
 
 from __future__ import annotations
@@ -44,11 +43,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.stencil import SS, offsets
-from ..solvers import bgs
+from ..ops.stencil import OCEAN, SS, TT
 from ..solvers.fgmres import fgmres_flat, fgmres_host
 
-_OFFS = offsets()
 F32 = torch.float32
 
 
@@ -134,17 +131,10 @@ def make_sharded_stencil_apply(domain):
     The analog of the reference's Epetra CSR SpMV with ghost import
     (matetc.F90:147-166 + TRIOS importers): each rank exchanges 1-deep
     halos and contracts its 27 local windows (``ops.stencil.
-    apply_stencil``'s product, on the padded block)."""
-
-    def apply(An_l: torch.Tensor, x_l: torch.Tensor) -> torch.Tensor:
-        nun, l, ml, nl = x_l.shape
-        xp = halo_pad_shard(x_l, domain)
-        windows = torch.stack([
-            xp[:, 1 + dk:1 + dk + l, 1 + dj:1 + dj + ml, 1 + di:1 + di + nl]
-            for (di, dj, dk) in _OFFS])
-        return (An_l * windows.unsqueeze(1)).sum(dim=(0, 2))
-
-    return apply
+    apply_stencil``'s product, on the padded block), the partitioned
+    sweep's product (``.bgs.PartitionedGrid.st``)."""
+    from .bgs import PartitionedGrid
+    return PartitionedGrid(domain).st
 
 
 def _check_device(ocean, domain) -> None:
@@ -225,6 +215,26 @@ def sharded_deflator(ocean, domain, An_l: torch.Tensor):
     return domain.shard_state(q).reshape(q.shape[0], -1).T.contiguous()
 
 
+def _row_scale(ocean, domain, An_l):
+    """``scaling.row_col_scaling``'s row field R on this rank's block of
+    the Jacobian, and its value at the integral-condition row: the
+    averaged centre block is a sum over the ranks."""
+    from ..models.ocean import scaling
+    cfg = ocean.cfg
+    ml, nl = domain.local_shape
+    ocean_g = ocean.landm[1:cfg.l + 1, 1:cfg.m + 1, 1:cfg.n + 1] == OCEAN
+    ocean_l = ocean_g[:, domain.j0:domain.j0 + ml, domain.i0:domain.i0 + nl]
+    mask = torch.as_tensor(ocean_l, dtype=An_l.dtype, device=An_l.device)
+    db = domain.allreduce((An_l[4] * mask).sum(dim=(2, 3, 4))) \
+        / max(int(ocean_g.sum()), 1)
+    dr, _ = scaling.scal(db.cpu().numpy())
+    R = np.where(ocean_l[None], (1.0 / dr)[:, None, None, None], 1.0)
+    R[TT] = R[SS] = 0.5 * (R[TT] + R[SS])
+    _, k, j, i = ocean.rowintcon
+    rint = 0.5 * (1.0 / dr[TT] + 1.0 / dr[SS]) if ocean_g[k, j, i] else 1.0
+    return torch.as_tensor(R, dtype=An_l.dtype, device=An_l.device), rint
+
+
 def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                        preconditioner: str = "BGS",
                        apply_opts: dict | None = None,
@@ -232,23 +242,26 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                        nullq="ocean"):
     """Sharded BGS-preconditioned FGMRES solve (the full solve path of
     §3.1 over the ranks): the Krylov matvec exchanges halos, the block-GS
-    preconditioner is factored and applied on the gathered vector on
-    every rank, and the pressure null modes are deflated globally:
-    ``Q^T v`` is a sum over the ranks of their rows.  nullq is this
-    rank's rows of the modes' basis (:func:`sharded_deflator`) or None;
-    "ocean" takes the modes of the ocean's Jacobian where it has one, as
-    the JAX package does.
+    preconditioner is factored and applied on each rank's block
+    (:class:`.bgs.PartitionedBGS`; no gather), and the pressure null modes
+    are deflated globally: ``Q^T v`` is a sum over the ranks of their
+    rows.  nullq is this rank's rows of the modes' basis
+    (:func:`sharded_deflator`) or None; "ocean" takes the modes of the
+    ocean's Jacobian where it has one, as the JAX package does.
 
     preconditioner="Columns" is the column-block preconditioner
     (``solvers.preconditioner``), local to each rank since z is never
-    partitioned: no gather.  Its solve is ``Ocean._solve_operator``'s
-    with Columns and Double: THCM row scaling where the ocean asks for
-    it (the averaged centre block a sum over the ranks) and the
-    deflation above; Double only.
+    partitioned.  Its solve is ``Ocean._solve_operator``'s with Columns
+    and Double: THCM row scaling where the ocean asks for it (the averaged
+    centre block a sum over the ranks) and the deflation above; Double
+    only.
 
     Returns ``solve(An_l, b_l, tol, maxiter) -> ShardedSolve`` — the
     multi-rank equivalent of Ocean.solve, for the np in {1, 2, 4}
     equivalence regression (reference src/tests/CMakeLists.txt:77-87).
+    The BGS solve keeps its factors while the solves take the same
+    tensor, as Ocean keeps its own; ``solve.preconditioner()`` is the
+    PartitionedBGS of the last tensor (None before the first solve).
 
     precision="Double" is the all-f64 path.  "Mixed" solves the
     THCM-row-scaled system with f32 Krylov operators (matvec and sweep)
@@ -256,14 +269,16 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
     most 12, each an inner solve to ``inner_tol`` that gives up after
     ``stall_limit`` stalled iterations), then a GMRES-IR tail (an outer
     f64 FGMRES of at most 60 iterations preconditioned by inner solves at
-    1e-2) where the sweeps stop short.  apply_opts are the sweep's
-    per-block knobs (``bgs.apply``'s keywords); the multichip dry run
-    passes a lighter budget.
+    1e-2) where the sweeps stop short.  The factors are the JAX package's
+    sharded solve's (MG on ATS); apply_opts are the sweep's per-block
+    knobs (``bgs.apply``'s keywords), and the multichip dry run passes a
+    lighter sweep.  A branch of the sweep that is not partitioned (the
+    saddle scheme KRYLOV, the orderings M2 and M3) raises ValueError.
     """
+    from .bgs import PartitionedBGS, check_branches, int_row_of
     _check_device(ocean, domain)
     apply_kw = dict(apply_opts or {})
     cfg = ocean.cfg
-    landm = ocean.landm
     ml, nl = domain.local_shape
     shape = (6, cfg.l, ml, nl)
     matvec = _make_matvec(ocean, domain)
@@ -287,43 +302,32 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
     if preconditioner != "BGS":
         raise ValueError(f"sharded solve: preconditioner {preconditioner} "
                          "(the sharded ones are BGS and Columns)")
-
-    def build(An_g, int_scale):
-        int_row = ((ocean.int_coeff, ocean.rowintcon, int_scale)
-                   if cfg.sres == 0 else None)
-        return bgs.build(An_g, landm, periodic=cfg.periodic,
-                         ts_precond="MG", int_row=int_row)
-
-    def sweep(factors, graphs, v_l):
-        z = bgs.apply(factors, domain.gather(v_l), periodic=cfg.periodic,
-                      graphs=graphs, **apply_kw)
-        return domain.shard_state(z)
-
-    def graphs_for(factors):
-        return bgs.SweepGraphs(factors) if domain.device.type == "cuda" \
-            else None
-
+    check_branches(apply_kw)
     built = {}
 
-    def factors_for(An_l):
-        """The sweep's factors and graphs for An_l, kept while the solves
-        take the same tensor (as Ocean keeps its factors)."""
+    def factored(An_l, prep):
+        """prep(An_l) = (the operator's tensors, the preconditioner),
+        kept while the solves take the same tensor."""
         if built.get("An") is not An_l:
             built.clear()
-            factors = build(domain.gather(An_l), float(cfg.int_sign))
-            built.update(An=An_l, factors=factors,
-                         graphs=graphs_for(factors))
-        return built["factors"], built["graphs"]
+            ops, prec = prep(An_l)
+            built.update(An=An_l, ops=ops, prec=prec)
+        return built["ops"], built["prec"]
+
+    def preconditioner_of(An_s, int_scale, dtype=None, held=()):
+        return PartitionedBGS(An_s, ocean.landm, domain,
+                              int_row=int_row_of(ocean, int_scale),
+                              dtype=dtype, apply_opts=apply_kw, held=held)
 
     def solve_double(An_l, b_l, tol, maxiter):
-        factors, graphs = factors_for(An_l)
+        _, sweep = factored(An_l, lambda A: (None, preconditioner_of(
+            A, float(cfg.int_sign), held=(A,))))
 
         def mv(v):
             return proj(matvec(An_l, v.reshape(shape)).reshape(-1), nullq)
 
         def pc(v):
-            return proj(sweep(factors, graphs, v.reshape(shape))
-                        .reshape(-1), nullq)
+            return proj(sweep(v.reshape(shape)).reshape(-1), nullq)
 
         flat_b = proj(b_l.reshape(-1), nullq)
         res = fgmres_flat(mv, pc, flat_b, torch.zeros_like(flat_b),
@@ -331,7 +335,11 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         return ShardedSolve(proj(res.x, nullq).reshape(shape), res.iters,
                             res.relres, 0)
 
+    def last():
+        return built.get("prec")
+
     if precision != "Mixed":
+        solve_double.preconditioner = last
         return solve_double
 
     # ---- Mixed: host-driven f64 iterative refinement ------------------
@@ -343,26 +351,21 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
     # row-scaled system (R J) z = R b is solved, like the production path
     # (scaling.py THCM row scaling, Ocean.C:1206-1214): the raw Jacobian's
     # rows span many orders, which f32 would lose.
-    from ..models.ocean import scaling
-    from ..models.ocean.ocean import _to_dtype
     max_sweeps = 12
     nullq32 = None if nullq is None else nullq.to(F32)
 
     def prep(An_l):
-        An_g = domain.gather(An_l)
-        if cfg.scaling == "THCM":
-            R, _ = scaling.row_col_scaling(An_g, landm)
-            rint = float(R[ocean.rowintcon])
-            An_g = An_g * R[None, :, None]
-            R_l = domain.shard_state(R)
-        else:
-            R_l, rint = None, 1.0
-        factors32 = _to_dtype(build(An_g, rint * cfg.int_sign), F32)
-        An_l = domain.shard_stencil(An_g)
-        return An_l, factors32, graphs_for(factors32), An_l.to(F32), R_l, \
-            rint
+        """The row-scaled block, its f32 copy, the f32 sweep of it, the
+        row scale and the integral row's scale."""
+        R_l, rint = _row_scale(ocean, domain, An_l) \
+            if cfg.scaling == "THCM" else (None, 1.0)
+        if R_l is not None:
+            An_l = An_l * R_l[None, :, None]
+        An32 = An_l.to(F32)
+        return (An_l, An32, R_l, rint), preconditioner_of(
+            An_l, rint * cfg.int_sign, dtype=F32, held=(An_l, An32))
 
-    def inner(An32, factors32, graphs, r, tol, rint, maxiter):
+    def inner(An32, sweep32, r, tol, rint, maxiter):
         """One f32-operator Krylov solve with f64 Arnoldi of the
         normalized residual r."""
         def mv_h(v):
@@ -370,7 +373,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
             return proj(y, nullq32).to(r.dtype)
 
         def pc_h(v):
-            z = sweep(factors32, graphs, v.to(F32).reshape(shape))
+            z = sweep32(v.to(F32).reshape(shape))
             return proj(z.reshape(-1), nullq32).to(r.dtype)
 
         # stall_limit: the f32 inner solve meets its inexact-matvec noise
@@ -381,7 +384,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         return proj(res.x, nullq), res.iters
 
     def solve_mixed(An_l, b_l, tol, maxiter):
-        An_l, factors32, graphs, An32, R_l, rint = prep(An_l)
+        (An_l, An32, R_l, rint), sweep32 = factored(An_l, prep)
 
         def mv64(v):
             return proj(matvec(An_l, v.reshape(shape), rint).reshape(-1),
@@ -398,8 +401,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         for _ in range(max_sweeps):
             if rn <= target:
                 break
-            dz, its = inner(An32, factors32, graphs, r / rn, inner_tol, rint,
-                            maxiter)
+            dz, its = inner(An32, sweep32, r / rn, inner_tol, rint, maxiter)
             total += its
             x_new = x + dz * rn
             r_new = flat_b - mv64(x_new)
@@ -419,8 +421,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                 vn = domain.norm(v)
                 if vn == 0.0:
                     return v
-                dz, its = inner(An32, factors32, graphs, v / vn, 1e-2, rint,
-                                maxiter)
+                dz, its = inner(An32, sweep32, v / vn, 1e-2, rint, maxiter)
                 inner_count += its
                 return dz * vn
 
@@ -435,34 +436,16 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         return ShardedSolve(x.reshape(shape), total, rn / max(bn, 1e-300),
                             outer)
 
+    solve_mixed.preconditioner = last
     return solve_mixed
 
 
 def _columns_solve(ocean, domain, matvec, proj, nullq, shape):
     """The Columns + Double solve of ``Ocean._solve_operator``
     (``_get_prec_factors``, ``_solve_double``) on this rank's block."""
-    from ..models.ocean import scaling
-    from ..ops.stencil import OCEAN, TT
     from ..solvers.preconditioner import (apply_column_prec,
                                           build_column_blocks)
     cfg = ocean.cfg
-    ml, nl = domain.local_shape
-    ocean_g = ocean.landm[1:cfg.l + 1, 1:cfg.m + 1, 1:cfg.n + 1] == OCEAN
-    n_ocean = max(int(ocean_g.sum()), 1)
-    ocean_l = ocean_g[:, domain.j0:domain.j0 + ml, domain.i0:domain.i0 + nl]
-
-    def row_scale(An_l):
-        """scaling.row_col_scaling's row field R on this block, and its
-        value at the integral row: the averaged centre block is a sum
-        over the ranks."""
-        mask = torch.as_tensor(ocean_l, dtype=An_l.dtype, device=An_l.device)
-        db = domain.allreduce((An_l[4] * mask).sum(dim=(2, 3, 4))) / n_ocean
-        dr, _ = scaling.scal(db.cpu().numpy())
-        R = np.where(ocean_l[None], (1.0 / dr)[:, None, None, None], 1.0)
-        R[TT] = R[SS] = 0.5 * (R[TT] + R[SS])
-        rint = 0.5 * (1.0 / dr[TT] + 1.0 / dr[SS])
-        return torch.as_tensor(R, dtype=An_l.dtype, device=An_l.device), rint
-
     built = {}
 
     def scaled(An_l):
@@ -473,7 +456,7 @@ def _columns_solve(ocean, domain, matvec, proj, nullq, shape):
             built.clear()
             R_l, rint, An_s = None, 1.0, An_l
             if cfg.scaling == "THCM":
-                R_l, rint = row_scale(An_l)
+                R_l, rint = _row_scale(ocean, domain, An_l)
                 An_s = An_l * R_l[None, :, None]
             built.update(An=An_l, R=R_l, rint=rint, An_s=An_s,
                          factors=build_column_blocks(An_s))

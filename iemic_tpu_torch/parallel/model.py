@@ -24,11 +24,11 @@ from .halo import make_sharded_ops, make_sharded_solve, sharded_deflator
 class ShardedOcean:
     """The serial ``ocean`` (an ``Ocean`` on this rank's device, at the
     starting state) over the ranks of ``domain``.  The solve is the one
-    the ocean's solver parameters name: Preconditioning BGS (the sweep on
-    the gathered vector, Double or Mixed) or Columns (local to the rank,
-    Double), at their FGMRES tolerance and iterations, with the pressure
-    null modes of the first Jacobian deflated as ``Ocean`` deflates
-    them."""
+    the ocean's solver parameters name: Preconditioning BGS (factored and
+    applied on the rank's block, Double or Mixed) or Columns (local to the
+    rank, Double), at their FGMRES tolerance and iterations, with the
+    pressure null modes of the first Jacobian deflated as ``Ocean``
+    deflates them."""
 
     def __init__(self, ocean, domain):
         self.ocean = ocean

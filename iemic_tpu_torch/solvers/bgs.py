@@ -24,6 +24,13 @@ or MG on Auv and on ATS.
 
 Every block stays a slice of the stencil tensor; the slices the sweep
 applies are cut once in :func:`build`.
+
+:func:`build` and :func:`apply` reach the grid through a grid-operations
+object (``grid``; ``mg.Whole``, the whole grid on one device, by
+default): the stencil products, sums and norms over the grid, the zonal
+line solve, the multigrid's finest level and the whole of a 2D field.
+``parallel.bgs`` passes one rank's block of the grid instead, and the
+sweep's order of operations stays here, once.
 """
 
 from __future__ import annotations
@@ -33,8 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.stencil import (UU, VV, WW, PP, TT, SS, apply_stencil,
-                           windows)
+from ..ops.stencil import UU, VV, WW, PP, TT, SS, windows
 from . import mg as _mg
 from .fgmres import fgmres_flat
 from .preconditioner import (inv, column_blocks, to_columns, from_columns,
@@ -141,7 +147,7 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
           uv_precond: str = "Columns", ts_precond: str = "Columns",
           spp_precond: str = "Jacobi", int_row=None,
           spp_prolong_w: float = 0.25, uv_prolong_w: float = 0.25,
-          ts_prolong_w: float = 0.25) -> BGSPrec:
+          ts_prolong_w: float = 0.25, grid=None) -> BGSPrec:
     """Factor the preconditioner from the (row-scaled) stencil tensor.
 
     int_row: optional (coeff (6, l, m, n), (var, k, j, i), scale), the
@@ -152,14 +158,19 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     the JAX signature: the SIMPLE factors are always built.  Each block's
     multigrid has its own prolongation weight: spp_prolong_w for the 2D
     saddle's (Chat and the saddle MG), uv_prolong_w for Auv's,
-    ts_prolong_w for ATS's."""
+    ts_prolong_w for ATS's.  An is grid's part of the tensor (the whole
+    of it by default); landm and int_row's coefficients are whole, its
+    (k, j, i) a point of the whole grid."""
+    g = grid if grid is not None else _mg.Whole(periodic)
     _, nun, _, l, m, n = An.shape
+    mw, nw = g.shape(An)          # the whole grid's
     kw = dict(dtype=An.dtype, device=An.device)
-    ocean = torch.as_tensor(
-        (np.asarray(landm)[1:l + 1, 1:m + 1, 1:n + 1] == 0), **kw)
+    ocean_g = torch.as_tensor(
+        (np.asarray(landm)[1:l + 1, 1:mw + 1, 1:nw + 1] == 0), **kw)
+    ocean = g.local(ocean_g)
     if int_row is not None:
         coeff, (var, k, j, i), scale = int_row
-        icoeff = torch.as_tensor(coeff, **kw)[_TS].contiguous()
+        icoeff = g.local(torch.as_tensor(coeff, **kw)[_TS]).contiguous()
         iidx = (int(k), int(j), int(i))
         iscale = torch.as_tensor(scale, **kw)
     else:
@@ -189,26 +200,30 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     ts_binv = _column_block_inv(sub_ts)
 
     # pressure null modes (constant + checkerboard over ocean points,
-    # TRIOS_BlockPreconditioner.H:489-494) and their 2D shadows
-    ij = (np.arange(m)[:, None] + np.arange(n)[None, :]) % 2
+    # TRIOS_BlockPreconditioner.H:489-494) and their 2D shadows, of the
+    # whole mask; the 2D saddle's SIMPLE factors and its multigrids are
+    # built whole
+    ij = (np.arange(mw)[:, None] + np.arange(nw)[None, :]) % 2
     cbpat = torch.as_tensor(np.where(ij == 0, 1.0, -1.0), **kw)
 
     def unit(v):
         return v / torch.clamp(torch.linalg.norm(v), min=1e-300)
 
-    svp = torch.stack([unit(ocean), unit(ocean * cbpat)])
-    wet = torch.amax(ocean, dim=0)
-    sv2d = torch.stack([unit(wet), unit(wet * cbpat)])
+    svp = g.local(torch.stack([unit(ocean_g), unit(ocean_g * cbpat)]))
+    wet = torch.amax(ocean_g, dim=0)
+    sv2d_g = torch.stack([unit(wet), unit(wet * cbpat)])
+    sv2d = g.local(sv2d_g)
 
-    spp_simple = build_simple(Spp, sv2d, periodic=periodic,
+    Spp_g = g.whole(Spp)
+    spp_simple = build_simple(Spp_g, sv2d_g, periodic=periodic,
                               prolong_w=spp_prolong_w)
 
     # 2D multigrid for the depth-averaged saddle: the 9-point stencil as
     # the dk = 0 plane of a one-layer 27-point tensor
     spp_mg = None
     if spp_precond == "MG":
-        Spp27 = An.new_zeros((27, 3, 3, 1, m, n))
-        Spp27[:9, :, :, 0] = Spp
+        Spp27 = An.new_zeros((27, 3, 3, 1, mw, nw))
+        Spp27[:9, :, :, 0] = Spp_g
         spp_mg = _mg.build(Spp27, periodic=periodic,
                            prolong_w=spp_prolong_w)
 
@@ -226,14 +241,14 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
 
     # validated TS null modes: const-T / const-S over ocean cells, gated
     # by the actual smallness of A v
-    ts_scale = torch.clamp(torch.amax(torch.abs(sub_ts)), min=1e-30)
+    ts_scale = torch.clamp(g.amax(torch.abs(sub_ts)), min=1e-30)
     nulls = []
     for var in range(2):
         v = torch.zeros((2, l, m, n), **kw)
         v[var] = ocean
-        vn = torch.clamp(torch.linalg.norm(v), min=1e-30)
-        Av = apply_stencil(sub_ts, v, periodic=periodic)
-        gate = torch.linalg.norm(Av) < 1e-8 * ts_scale * vn
+        vn = torch.clamp(g.norm(v), min=1e-30)
+        Av = g.st(sub_ts, v)
+        gate = g.norm(Av) < 1e-8 * ts_scale * vn
         nulls.append(gate.to(An.dtype) * v / vn)
     ts_null = torch.stack(nulls)
 
@@ -243,20 +258,21 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     if rhomu:
         q0 = torch.einsum('ab,bxyz->axyz', Qts, ts_null[0])
         q1 = torch.einsum('ab,bxyz->axyz', Qts, ts_null[1])
-        n0 = torch.clamp(torch.linalg.norm(q0), min=1e-30)
+        n0 = torch.clamp(g.norm(q0), min=1e-30)
         q0 = q0 / n0 * (n0 > 1e-15).to(An.dtype)
-        q1 = q1 - torch.sum(q0 * q1) * q0
-        n1 = torch.clamp(torch.linalg.norm(q1), min=1e-30)
+        q1 = q1 - g.sum(q0 * q1) * q0
+        n1 = torch.clamp(g.norm(q1), min=1e-30)
         q1 = q1 / n1 * (n1 > 1e-15).to(An.dtype)
         ts_null_rm = torch.stack([q0, q1])
 
     uv_mg = ts_mg = None
     if uv_precond == "MG":
-        uv_mg = _mg.build(sub_uv, periodic=periodic, prolong_w=uv_prolong_w)
+        uv_mg = _mg.build(sub_uv, periodic=periodic, prolong_w=uv_prolong_w,
+                          grid=g)
     if ts_precond == "MG":
         ts_mg = _mg.build(ts_rm if rhomu else sub_ts, periodic=periodic,
-                          prolong_w=ts_prolong_w)
-    uv_xinv, uv_xdummy = _mg._xline_inv(sub_uv, periodic=periodic)
+                          prolong_w=ts_prolong_w, grid=g)
+    uv_xinv, uv_xdummy = g.xline_inv(sub_uv)
 
     ap_binv, ap_dummy = _column_tridiag_factor(
         An[4, _W, _P], An[13, _W, _P], An[22, _W, _P])
@@ -332,9 +348,10 @@ class SweepGraphs:
         return self.recorded[scheme]
 
 
-def _inner_fgmres(matvec, prec, b, tol, maxiter):
+def _inner_fgmres(matvec, prec, b, tol, maxiter, reduce=None):
     res = fgmres_flat(matvec, prec, b.reshape(-1),
-                      torch.zeros_like(b.reshape(-1)), tol, maxiter)
+                      torch.zeros_like(b.reshape(-1)), tol, maxiter,
+                      reduce=reduce)
     return res.x.reshape(b.shape)
 
 
@@ -343,7 +360,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
           spp_scheme: str = "SI", permutation: int = 1,
           symmetric: bool = False, tol_spp: float = 1e-6,
           tol_uv: float = 1e-2, tol_ts: float = 1e-2,
-          graphs: SweepGraphs | None = None) -> torch.Tensor:
+          graphs: SweepGraphs | None = None, grid=None) -> torch.Tensor:
     """Block-GS sweep z ~= J^{-1} r, in the dtype of r and the factors.
 
     permutation selects one of the reference's three block orderings
@@ -353,13 +370,13 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
     the separate Auv solve of the 2D-saddle branches (scheme KRYLOV, M2,
     M3).  graphs, for CUDA tensors, replays the 3D saddle iteration's
     kernels from graphs of this factor set instead of launching them one
-    by one."""
+    by one.  grid holds r and the factors (the factors' own, from
+    :func:`build`; the whole grid by default)."""
+    g = grid if grid is not None else _mg.Whole(periodic)
     _, l, m, n = r.shape
     buv, bw, bp, bts = r[_UV], r[_W], r[_P], r[_TS]
     Nuv = 2 * l * m * n
-
-    def st(A, x):
-        return apply_stencil(A, x, periodic=periodic)
+    st = g.st
 
     def ap_solve(b):
         """ytilp = Ap \\ b: hydrostatic column solve (w rows, p col)."""
@@ -370,7 +387,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
         return _apply_tridiag_inv(prec.aw_binv, prec.aw_dummy, b)
 
     def p_deflate(p2):
-        return deflate(p2, prec.sv2d)
+        return deflate(p2, prec.sv2d, total=g.sum)
 
     # ---- the depth-averaged 2D saddle (scheme KRYLOV, M2, M3) --------
     def spp_mv(v):
@@ -394,37 +411,39 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
     def spp_solve(ruv, rp):
         rbar = torch.cat([ruv.mean(dim=1), rp.mean(dim=1)])
         zbar = spp_pc(rbar.reshape(-1)) if nit_spp == 0 \
-            else _inner_fgmres(spp_mv, spp_pc, rbar, tol_spp, nit_spp)
+            else _inner_fgmres(spp_mv, spp_pc, rbar, tol_spp, nit_spp,
+                               g.reduce)
         return zbar.reshape(3, m, n)
 
     # ---- the 3D saddle of SolveLower1 --------------------------------
     def lift(pbar):
         return pbar.expand(1, l, m, n)
 
-    def dmean(uvl):
-        return st(prec.A_puv, uvl)[0].mean(dim=0)
+    def dmean(uvl, w=None):
+        return st(prec.A_puv, uvl, w)[0].mean(dim=0)
 
     def s3_mv(v):
         uvl = v[:Nuv].reshape(2, l, m, n)
-        yuv = st(prec.A_uvuv, uvl) \
+        w = g.windows(uvl)
+        yuv = st(prec.A_uvuv, uvl, w) \
             + st(prec.A_uvp, lift(v[Nuv:].reshape(m, n)))
-        return torch.cat([yuv.reshape(-1), dmean(uvl).reshape(-1)])
+        return torch.cat([yuv.reshape(-1), dmean(uvl, w).reshape(-1)])
 
     def chat_vcycle(b2):
         """One Chat V-cycle (the reference solves Chat with
-        AztecOO+Ifpack, TRIOS_Saddlepoint.H:259-276)."""
-        z = _mg.apply2d(prec.spp_simple.chat_mg, p_deflate(b2),
+        AztecOO+Ifpack, TRIOS_Saddlepoint.H:259-276), on the whole 2D
+        field."""
+        sp = prec.spp_simple
+        z = _mg.apply2d(sp.chat_mg, deflate(g.whole(b2), sp.nullmodes),
                         periodic=periodic)
-        return p_deflate(z)
+        return g.local(deflate(z, sp.nullmodes))
 
     def ahat(ruv):
         """Column solve, then a zonal line correction (the polar u/v
         ring modes are invisible to the column blocks)."""
         u = apply_col_inv(prec.uv_binv, ruv)
         res = ruv - st(prec.A_uvuv, u)
-        rx = res.reshape(2 * l * m, n).masked_fill(prec.uv_xdummy, 0.0)
-        return u + torch.bmm(prec.uv_xinv,
-                             rx.unsqueeze(-1)).reshape(2, l, m, n)
+        return u + g.xline(prec.uv_xinv, prec.uv_xdummy, res)
 
     def s3_pc(v):
         """SIMPLE / SIMPLE(L) / SIMPLER preconditioner of the 3D saddle
@@ -452,7 +471,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
             mv, pc = s3_mv, s3_pc
             if graphs is not None:
                 mv, pc = graphs.get(spp_scheme, s3_mv, s3_pc, rhs)
-            sol = _inner_fgmres(mv, pc, rhs, tol_spp, nit_spp)
+            sol = _inner_fgmres(mv, pc, rhs, tol_spp, nit_spp, g.reduce)
         return (sol[:Nuv].reshape(2, l, m, n),
                 p_deflate(sol[Nuv:].reshape(m, n)))
 
@@ -462,27 +481,27 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
 
     def uv_pc(v):
         v4 = v.reshape(2, l, m, n)
-        z = _mg.apply(prec.uv_mg, v4, periodic=periodic) \
+        z = _mg.apply(prec.uv_mg, v4, periodic=periodic, grid=g) \
             if prec.uv_mg is not None else apply_col_inv(prec.uv_binv, v4)
         return z.reshape(-1)
 
     def auv_solve(b):
         if nit_uv == 0:
             return uv_pc(b.reshape(-1)).reshape(b.shape)
-        return _inner_fgmres(uv_mv, uv_pc, b, tol_uv, nit_uv)
+        return _inner_fgmres(uv_mv, uv_pc, b, tol_uv, nit_uv, g.reduce)
 
     # ---- tracers -----------------------------------------------------
     def ts_row_fix(y, v4):
         """The integral-condition row inside the ATS operator."""
         if prec.ts_icoeff is not None:
-            y[(1,) + prec.ts_iidx] = prec.ts_iscale \
-                * torch.sum(prec.ts_icoeff * v4)
+            g.put(y[1], prec.ts_iidx,
+                  prec.ts_iscale * g.sum(prec.ts_icoeff * v4))
         return y
 
     def ts_proj(z4):
         for q in range(2):
             sv = prec.ts_null[q]
-            z4 = z4 - torch.sum(sv * z4) * sv
+            z4 = z4 - g.sum(sv * z4) * sv
         return z4
 
     def ts_meanS_fix(z4, r4):
@@ -491,10 +510,9 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
         if prec.ts_icoeff is None:
             return z4
         sv = prec.ts_null[1]
-        k, j, i = prec.ts_iidx
-        denom = prec.ts_iscale * torch.sum(prec.ts_icoeff * sv)
+        denom = prec.ts_iscale * g.sum(prec.ts_icoeff * sv)
         big = torch.abs(denom) > 1e-30
-        alpha = torch.where(big, r4[1, k, j, i]
+        alpha = torch.where(big, g.at(r4[1], prec.ts_iidx)
                             / torch.where(big, denom, 1.0), 0.0)
         return z4 + alpha * sv
 
@@ -504,7 +522,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
 
     def ts_pc(v):
         v4 = v.reshape(2, l, m, n)
-        z = _mg.apply(prec.ts_mg, v4, periodic=periodic) \
+        z = _mg.apply(prec.ts_mg, v4, periodic=periodic, grid=g) \
             if prec.ts_mg is not None else apply_col_inv(prec.ts_binv, v4)
         return ts_meanS_fix(ts_proj(z), v4).reshape(-1)
 
@@ -522,7 +540,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
 
     def rm_pc(v):
         v4 = v.reshape(2, l, m, n)
-        z = _mg.apply(prec.ts_mg, v4, periodic=periodic) \
+        z = _mg.apply(prec.ts_mg, v4, periodic=periodic, grid=g) \
             if prec.ts_mg is not None \
             else apply_col_inv(prec.ts_rm_binv, v4)
         return z.reshape(-1)
@@ -531,17 +549,17 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
         if prec.ts_rm is not None:
             qb = q_mul(b)
             qz = rm_pc(qb.reshape(-1)) if nit_ts == 0 \
-                else _inner_fgmres(rm_mv, rm_pc, qb, tol_ts, nit_ts)
+                else _inner_fgmres(rm_mv, rm_pc, qb, tol_ts, nit_ts, g.reduce)
             y = q_mul(qz.reshape(2, l, m, n))
             return ts_meanS_fix(ts_proj(y), b)
         if nit_ts == 0:
             return ts_pc(b.reshape(-1)).reshape(b.shape)
-        return _inner_fgmres(ts_mv, ts_pc, b, tol_ts, nit_ts)
+        return _inner_fgmres(ts_mv, ts_pc, b, tol_ts, nit_ts, g.reduce)
 
     def prescorr(yp):
         for q in range(2):
             sv = prec.svp[q]
-            yp = yp - torch.sum(sv * yp[0]) * sv[None]
+            yp = yp - g.sum(sv * yp[0]) * sv[None]
         return yp
 
     # ---- forward sweeps (SolveLower1/2/3) ----------------------------
@@ -558,8 +576,9 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
             # the reference's structure: yuv comes from the 3D saddle
             yuv, pbar = spp_solve3(ruv, bp)
             yp = prescorr(ytilp + pbar[None, None])
-        yw = aw_solve(bp - st(prec.A_puv, yuv))
-        yts = ats_solve(bts - st(prec.A_tsuv, yuv) - st(prec.A_tsw, yw))
+        w = g.windows(yuv)
+        yw = aw_solve(bp - st(prec.A_puv, yuv, w))
+        yts = ats_solve(bts - st(prec.A_tsuv, yuv, w) - st(prec.A_tsw, yw))
     elif permutation == 2:
         # M2 (SolveLower2): Spp first (no pressure pre-elimination), then
         # continuity, tracers, and pressure last with the buoyancy
@@ -567,8 +586,9 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
         # momentum solve on buv less the barotropic pressure gradient
         zbar = spp_solve(buv, bp)
         yuv = auv_solve(buv - st(prec.A_uvp, lift(zbar[2])))
-        yw = aw_solve(bp - st(prec.A_puv, yuv))
-        yts = ats_solve(bts - st(prec.A_tsuv, yuv) - st(prec.A_tsw, yw))
+        w = g.windows(yuv)
+        yw = aw_solve(bp - st(prec.A_puv, yuv, w))
+        yts = ats_solve(bts - st(prec.A_tsuv, yuv, w) - st(prec.A_tsw, yw))
         ytilp = ap_solve(bw - st(prec.A_wts, yts))
         yp = prescorr(ytilp + zbar[2][None, None])
     elif permutation == 3:

@@ -14,6 +14,13 @@ smoothed-aggregation multigrid, ocean_preconditioner_params.xml:66-120,
 The coarsest dense matrices are assembled by scattering the stencil
 coefficients into place (the JAX package applied the operator to the
 identity under ``vmap``).
+
+The 3D hierarchy reaches its finest level's grid through a grid-operations
+object (:class:`Whole`, the whole grid on one device): the stencil
+product, the zonal line solve, the restriction, the prolongation, the
+Galerkin coarsening and the whole of a field.  ``parallel.bgs``'s
+``PartitionedGrid`` is one rank's block of the grid; the coarser levels
+are always whole.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.stencil import offsets, apply_stencil
+from ..ops.stencil import offsets, windows
 from .preconditioner import (inv, column_blocks, to_columns,
                              from_columns)
 
@@ -73,17 +80,27 @@ def _column_inv(An: torch.Tensor, *, eps=1e-12):
     return inv(B), dummy
 
 
+def xline_bands(An: torch.Tensor) -> torch.Tensor:
+    """The three bands (3, nv, l, m, n) of the per-variable x-lines:
+    stencil locations 1/4/7 (di = -1, 0, 1; dj = dk = 0)."""
+    idx = torch.arange(An.shape[1], device=An.device)
+    return torch.stack([An[1][idx, idx], An[4][idx, idx], An[7][idx, idx]])
+
+
 def _xline_inv(An: torch.Tensor, *, periodic: bool, eps=1e-12):
     """Batched inverses of the per-variable x-line (cyclic) tridiagonal
     blocks (stencil locations 1/4/7, dj=dk=0): (xinv (nv*l*m, n, n),
     dummy (nv*l*m, n))."""
-    _, nv, _, l, m, n = An.shape
-    idx = torch.arange(nv, device=An.device)
-    lo = An[1][idx, idx]                 # (nv, l, m, n)
-    dg = An[4][idx, idx]
-    hi = An[7][idx, idx]
-    B = An.new_zeros((nv, l, m, n, n))
-    ii = torch.arange(n, device=An.device)
+    return _xline_bands_inv(xline_bands(An), periodic=periodic, eps=eps)
+
+
+def _xline_bands_inv(bands: torch.Tensor, *, periodic: bool, eps=1e-12):
+    """:func:`_xline_inv` from the bands (3, nv, l, m, n) of whole
+    lines."""
+    lo, dg, hi = bands
+    nv, l, m, n = dg.shape
+    B = dg.new_zeros((nv, l, m, n, n))
+    ii = torch.arange(n, device=dg.device)
     B[..., ii, ii] = dg
     B[..., ii[1:], ii[:-1]] = lo[..., 1:]
     B[..., ii[:-1], ii[1:]] = hi[..., :-1]
@@ -153,6 +170,84 @@ class MGPrec(NamedTuple):
     pw: float                # prolongation neighbour weight
 
 
+class Whole:
+    """The grid operations of the 3D multigrid's finest level and of the
+    BGS sweep, on the whole grid on one device: the stencil windows and
+    their contraction, sums, norms and maxima over the grid, the zonal
+    line solve, the restriction, prolongation and Galerkin coarsening of
+    the 2x2 aggregates, and the whole of a field (the field itself).
+    ``parallel.bgs.PartitionedGrid`` has the same methods on one rank's
+    block."""
+
+    reduce = None            # the sum over ranks of fgmres_flat
+
+    def __init__(self, periodic: bool):
+        self.periodic = periodic
+
+    def windows(self, x: torch.Tensor) -> torch.Tensor:
+        return windows(x, self.periodic)
+
+    def st(self, A: torch.Tensor, x: torch.Tensor, w=None) -> torch.Tensor:
+        """The stencil product A x (``ops.stencil.apply_stencil``); w, the
+        windows of x, where another product took them already."""
+        w = self.windows(x) if w is None else w
+        return (A * w.unsqueeze(1)).sum(dim=(0, 2))
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.sum(t)
+
+    def norm(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.norm(v)
+
+    def amax(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.amax(t)
+
+    def shape(self, x: torch.Tensor) -> tuple[int, int]:
+        """The grid's (m, n) of a field on it."""
+        return tuple(x.shape[-2:])
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def at(self, x: torch.Tensor, idx: tuple) -> torch.Tensor:
+        """The value of an (l, m, n) field at the grid point idx."""
+        return x[idx]
+
+    def put(self, y: torch.Tensor, idx: tuple, value) -> None:
+        """Set an (l, m, n) field at the grid point idx."""
+        y[idx] = value
+
+    def xline_inv(self, An: torch.Tensor):
+        return _xline_inv(An, periodic=self.periodic)
+
+    def xline(self, xinv, xdummy, res: torch.Tensor) -> torch.Tensor:
+        """The zonal line solve of res (nv, l, m, n) by the inverses of
+        :meth:`xline_inv`."""
+        rx = res.reshape(-1, res.shape[-1]).masked_fill(xdummy, 0.0)
+        return torch.bmm(xinv, rx.unsqueeze(-1)).reshape(res.shape)
+
+    def coarsen(self, An: torch.Tensor) -> torch.Tensor:
+        m, n = An.shape[-2:]
+        return coarsen_stencil(_pad_hv(An, m % 2, n % 2),
+                               periodic=self.periodic)
+
+    def restrict(self, res: torch.Tensor) -> torch.Tensor:
+        return _restrict(res)
+
+    def prolong(self, zc: torch.Tensor, like: torch.Tensor, w: float
+                ) -> torch.Tensor:
+        """The prolongation of the coarse zc onto the grid of like."""
+        m, n = like.shape[-2:]
+        return _prolong2(zc, m, n, w, self.periodic)
+
+    def dense(self, Ainv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """A dense inverse of the whole grid's operator applied to r."""
+        return (Ainv @ r.reshape(-1)).reshape(r.shape)
+
+
 def _prolong2(zc: torch.Tensor, m: int, n: int, w: float,
               periodic: bool) -> torch.Tensor:
     """Cell-centered factor-2 prolongation of (..., mc, nc) to (..., m, n)
@@ -178,45 +273,47 @@ def _prolong2(zc: torch.Tensor, m: int, n: int, w: float,
 
 def build(An: torch.Tensor, *, periodic: bool, min_cols: int = 64,
           max_levels: int = 10, damping: float = 0.9,
-          xline: bool = True, prolong_w: float = 0.25) -> MGPrec:
+          xline: bool = True, prolong_w: float = 0.25,
+          grid=None) -> MGPrec:
     """Build the multigrid hierarchy for one (27, nv, nv, l, m, n)
     stencil sub-block; xline adds the zonal line solve to the smoother.
     With prolong_w > 0 the cycle is nonsymmetric (restriction stays
-    sum-aggregation): fine for FGMRES and IDR, not for CG."""
+    sum-aggregation): fine for FGMRES and IDR, not for CG.  grid holds
+    the finest level (An is its part of the block; :class:`Whole` by
+    default); the coarser levels are whole."""
+    g = grid if grid is not None else Whole(periodic)
     levels = []
     cur = An
     while True:
         binv, dummy = _column_inv(cur)
-        xinv, xdummy = _xline_inv(cur, periodic=periodic) if xline \
-            else (None, None)
+        xinv, xdummy = g.xline_inv(cur) if xline else (None, None)
         levels.append(MGLevel(An=cur, binv=binv, dummy=dummy,
                               xinv=xinv, xdummy=xdummy))
-        m, n = cur.shape[-2:]
+        m, n = g.shape(cur)
         if m * n <= min_cols or len(levels) >= max_levels \
                 or m < 4 or n < 4:
             break
-        cur = coarsen_stencil(_pad_hv(cur, m % 2, n % 2),
-                              periodic=periodic)
+        cur = g.coarsen(cur)
+        g = Whole(periodic)
     return MGPrec(levels=tuple(levels),
                   coarse_inv=_shifted_dense_inv(
-                      _stencil_to_dense(cur, periodic)),
+                      _stencil_to_dense(g.whole(cur), periodic)),
                   damping=damping, pw=prolong_w)
 
 
-def _smooth(lev: MGLevel, z, r, *, periodic, damping, nsweep=1):
+def _smooth(lev: MGLevel, z, r, *, periodic, damping, nsweep=1, grid=None):
     """Damped alternating-line Jacobi sweeps: a vertical (column) solve
     followed by a zonal (x-line) solve when built."""
+    g = grid if grid is not None else Whole(periodic)
     nv, l, m, n = r.shape
     for _ in range(nsweep):
-        res = r - apply_stencil(lev.An, z, periodic=periodic)
+        res = r - g.st(lev.An, z)
         rc = to_columns(res).masked_fill(lev.dummy, 0.0)
         dz = torch.bmm(lev.binv, rc.unsqueeze(-1)).squeeze(-1)
         z = z + damping * from_columns(dz, nv, l, m, n)
         if lev.xinv is not None:
-            res = r - apply_stencil(lev.An, z, periodic=periodic)
-            rx = res.reshape(nv * l * m, n).masked_fill(lev.xdummy, 0.0)
-            dzx = torch.bmm(lev.xinv, rx.unsqueeze(-1)).squeeze(-1)
-            z = z + damping * dzx.reshape(nv, l, m, n)
+            res = r - g.st(lev.An, z)
+            z = z + damping * g.xline(lev.xinv, lev.xdummy, res)
     return z
 
 
@@ -228,17 +325,19 @@ def _restrict(res: torch.Tensor) -> torch.Tensor:
     return res.reshape(res.shape[:-2] + (mc, 2, nc, 2)).sum(dim=(-3, -1))
 
 
-def _vcycle(prec: MGPrec, k: int, r, *, periodic):
+def _vcycle(prec: MGPrec, k: int, r, *, periodic, grid=None):
+    """One V-cycle from level k; grid holds level k (whole by
+    default)."""
+    g = grid if grid is not None else Whole(periodic)
     lev = prec.levels[k]
-    nv, l, m, n = r.shape
     if len(prec.levels) == 1:
         # degenerate hierarchy: the dense factor is the finest level
-        return (prec.coarse_inv @ r.reshape(-1)).reshape(r.shape)
+        return g.dense(prec.coarse_inv, r)
     z = _smooth(lev, torch.zeros_like(r), r, periodic=periodic,
-                damping=prec.damping)
+                damping=prec.damping, grid=g)
     if k == len(prec.levels) - 1:
         return z
-    rc = _restrict(r - apply_stencil(lev.An, z, periodic=periodic))
+    rc = g.restrict(r - g.st(lev.An, z))
     if k + 1 == len(prec.levels) - 1:
         zc = (prec.coarse_inv @ rc.reshape(-1)).reshape(rc.shape)
         # one smoothing pass washes out the gauge of the shift
@@ -246,17 +345,20 @@ def _vcycle(prec: MGPrec, k: int, r, *, periodic):
                      damping=prec.damping)
     else:
         zc = _vcycle(prec, k + 1, rc, periodic=periodic)
-    z = z + _prolong2(zc, m, n, prec.pw, periodic)
-    return _smooth(lev, z, r, periodic=periodic, damping=prec.damping)
+    z = z + g.prolong(zc, r, prec.pw)
+    return _smooth(lev, z, r, periodic=periodic, damping=prec.damping,
+                   grid=g)
 
 
 def apply(prec: MGPrec, r: torch.Tensor, *, periodic: bool,
-          cycles: int = 1) -> torch.Tensor:
-    """z ~= A^{-1} r by V-cycles.  r: (nv, l, m, n)."""
-    z = _vcycle(prec, 0, r, periodic=periodic)
+          cycles: int = 1, grid=None) -> torch.Tensor:
+    """z ~= A^{-1} r by V-cycles.  r: (nv, l, m, n), on grid's finest
+    level (whole by default)."""
+    g = grid if grid is not None else Whole(periodic)
+    z = _vcycle(prec, 0, r, periodic=periodic, grid=g)
     for _ in range(cycles - 1):
-        res = r - apply_stencil(prec.levels[0].An, z, periodic=periodic)
-        z = z + _vcycle(prec, 0, res, periodic=periodic)
+        res = r - g.st(prec.levels[0].An, z)
+        z = z + _vcycle(prec, 0, res, periodic=periodic, grid=g)
     return z
 
 

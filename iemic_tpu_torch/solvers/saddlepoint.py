@@ -81,11 +81,14 @@ def build_simple(Spp: torch.Tensor, sv2d: torch.Tensor, *, periodic: bool,
                      chat_dinv=chat_dinv, nullmodes=sv2d, chat_mg=chat_mg)
 
 
-def deflate(x: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
-    """Project the (orthonormal) modes out of x, one after the other."""
+def deflate(x: torch.Tensor, modes: torch.Tensor, *,
+            total=torch.sum) -> torch.Tensor:
+    """Project the (orthonormal) modes out of x, one after the other;
+    total is the sum of a product over the grid (over the ranks where x
+    and the modes are a rank's block)."""
     for q in range(modes.shape[0]):
         sv = modes[q]
-        x = x - torch.sum(sv * x) * sv
+        x = x - total(sv * x) * sv
     return x
 
 
