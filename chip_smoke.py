@@ -30,7 +30,8 @@ Phases, each printing its own line:
                 every entry point and cuSPARSE timed on that Jacobian
   6. variants — on the effort phase's model and Jacobian, one Mixed
                 solve of J x = -F at tol 1e-3, capped at 150 inner
-                iterations, for each other branch of the BGS sweep
+                iterations (3 for M2 and M3, see VARIANTS), for each
+                other branch of the BGS sweep
                 (saddle schemes SL, SR and KRYLOV, symmetric
                 Gauss-Seidel, the rho/mu transform, orderings M2 and M3,
                 Columns on ATS, MG on Auv and on the 2D saddle,
@@ -134,9 +135,12 @@ Phases, each printing its own line:
                 Ocean.apply_matrix to 1e-12, the sharded Double solve at
                 1e-2 (MV, relres, true relres, seconds) beside the serial
                 Ocean.solve in Double at 1e-2, the sharded Mixed solve at
-                2e-2, both through the partitioned BGS sweep, and one
-                partitioned sweep of -F with one saddle iteration and one
-                with the solve's thirty; for each, the bytes of the
+                2e-2, both through the partitioned BGS sweep, and the
+                partitioned sweeps of -F of PARALLEL_SWEEPS (one saddle
+                iteration, the solve's thirty, and each branch of the
+                sweep that runs the 2D saddle or a build option: scheme
+                KRYLOV, orderings M2 and M3, rho/mu, MG on Auv); for
+                each, the bytes of the
                 stencil tensor and the factor set, the peak device memory,
                 build seconds, seconds per sweep, message rounds and
                 bytes of whole fields summed over the ranks in the build
@@ -145,8 +149,10 @@ Phases, each printing its own line:
                 eagerly; the dry run's stage 3 at 96x38x12 (one continuation
                 step of a ShardedOcean from rest at Combined Forcing 0 on
                 the BGS/Double solve at 5e-2, at most three Newton
-                iterations) held to the serial Continuation on an Ocean
-                with the same solve, par and state to 1e-12.  (b) Four
+                iterations, the default Preconditioner sublist: 60 saddle
+                iterations to 1e-8, THCM row scaling, as Ocean.solve)
+                held to the serial Continuation on an Ocean with the same
+                solver parameters, par and state to 1e-12.  (b) Four
                 ranks spawned on the one card over gloo: on the rank grids
                 1x4 (decomp2d's) and 2x2 the gathered sharded matvec
                 against the serial product to 1e-12, per rank the seconds
@@ -154,7 +160,7 @@ Phases, each printing its own line:
                 sharded matvec; the gathered partitioned F and An against
                 the serial ones to 1e-13, per rank the seconds of the
                 partitioned residual and Jacobian and of a 2-deep
-                exchange with its bytes; the two partitioned sweeps of (a)
+                exchange with its bytes; the partitioned sweeps of (a)
                 on each rank grid, held to (a)'s (PARALLEL_SWEEPS' bounds),
                 each rank's bytes no more than (a)'s / 4 plus the pieces
                 held whole on every rank, and the same per-rank lines as
@@ -225,14 +231,17 @@ RELRES_MARGIN = 1.01
 # has a separate momentum solve (scheme KRYLOV, M2, M3).  Orderings M2
 # and M3 put the SIMPLE sweep with its inner Chat FGMRES inside the 2D
 # saddle's 60-iteration FGMRES, eager: about 4.3 s a sweep on the card,
-# so they get 6 iterations.
+# so they get 3 iterations (6 until the parallel phase took their
+# partitioned sweeps and the default sweep of stage 3, whose time these
+# 3 x 2 iterations make room for; at 6 they stalled at 0.111 and 0.671,
+# PERF.md).
 VARIANTS = [
     ("scheme SL", {"Saddlepoint scheme": "SL"}, VARIANT_CAP),
     ("symmetric Gauss-Seidel", {"Scheme": "symmetric Gauss-Seidel"},
      VARIANT_CAP),
     ("rho/mu transform", {"ATS rho/mu Transform": True}, VARIANT_CAP),
-    ("permutation 2", {"Permutation": 2}, 6),
-    ("permutation 3", {"Permutation": 3}, 6),
+    ("permutation 2", {"Permutation": 2}, 3),
+    ("permutation 3", {"Permutation": 3}, 3),
     ("ATS Columns", {"ATS Precond": "Columns"}, VARIANT_CAP),
     ("scheme KRYLOV, Auv MG", {"Saddlepoint scheme": "KRYLOV",
                                "Auv Precond": "MG"}, VARIANT_CAP),
@@ -424,23 +433,41 @@ PARALLEL_MATVEC_TOL = 1e-12
 PARALLEL_ASSEMBLY_TOL = 1e-13
 PARALLEL_SEED = 0
 # the one-rank continuation step (multichip's stage 3 at PARALLEL_GRID)
-# against the serial Continuation on Ocean, par and state
+# against the serial Continuation on Ocean with the same solver
+# parameters, par and state
 PARALLEL_STEP_TOL = 1e-12
 # the four-rank step against the one-rank step: the bounds of the JAX
 # package's tests/test_parallel.py:303-306
 PARALLEL_PAR_TOL, PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, 1e-3, 1e-6
 # the partitioned BGS sweeps of -F at the effort state on four ranks
-# against the one-rank sweep, relative to its largest entry: with one
-# saddle iteration only the rounding of the sums over the ranks differs
-# (1.8e-15 to 2.0e-15 on the card); with the sharded solve's thirty the
-# rounding grows through the inner FGMRES (1.7e-9 on the card at this
-# grid, whose saddle converges; PERF.md §6, PR 10)
-PARALLEL_SWEEPS = {"one saddle iteration": ({"nit_spp": 1}, 1e-10),
-                   "the solve's sweep": ({}, 1e-6)}
-# the serial Ocean whose BGS/Double solve is the sharded one's (bgs.apply's
-# inner budget, ATS multigrid, no row scaling)
-PARALLEL_SERIAL_PREC = {"Saddlepoint iterations": 30,
-                        "Saddlepoint tolerance": 1e-6, "ATS Precond": "MG"}
+# against the one-rank sweep of the same options, relative to its
+# largest entry: name -> (bgs.apply's keywords, bgs.build's keywords over
+# the sharded solve's build, bound).  With one saddle iteration only the
+# rounding of the sums over the ranks differs (1.8e-15 to 2.0e-15 on the
+# card); with the sharded solve's thirty the rounding grows through the
+# inner FGMRES (1.7e-9 on the card at this grid, whose saddle converges;
+# PERF.md §6).  The branches of the depth-averaged 2D saddle (scheme
+# KRYLOV, orderings M2 and M3; the 2D saddle made whole on every rank) take
+# one saddle and one Auv iteration.  M3 solves its 2D saddle after the
+# tracers, whose multigrid rounds otherwise on four ranks, with SIMPLE's
+# inner Chat FGMRES to 1e-6, whose stopping iteration that rounding can
+# move (4.5e-7 on the CPU at 16x10x3, tests/test_torch_parallel_bgs.py):
+# it is held to 5e-6, and M3 with Jacobi on the 2D saddle to 1e-10.  SR
+# and the 2D saddle's MG give no finite sweep on this grid (ROADMAP queue
+# 3 B); the CPU tests hold them
+_ONE = {"nit_spp": 1, "nit_uv": 1}
+PARALLEL_SWEEPS = {
+    "one saddle iteration": ({"nit_spp": 1}, {}, 1e-10),
+    "the solve's sweep": ({}, {}, 1e-6),
+    "KRYLOV, Jacobi on the 2D saddle": (dict(_ONE, spp_scheme="KRYLOV"),
+                                        {}, 1e-10),
+    "M2": (dict(_ONE, permutation=2), {}, 1e-10),
+    "M3": (dict(_ONE, permutation=3), {}, 5e-6),
+    "M3, Jacobi on the 2D saddle": (dict(_ONE, permutation=3,
+                                         spp_scheme="KRYLOV"), {}, 1e-10),
+    "rho/mu under M1/SI": (_ONE, {"rhomu": True}, 1e-10),
+    "MG on Auv under M2": (dict(_ONE, permutation=2),
+                           {"uv_precond": "MG"}, 1e-10)}
 
 
 def card() -> str:
@@ -2597,7 +2624,8 @@ def _parallel_one_rank(multichip, card_line: str):
     stage 1; the Mixed solve after it, as stage 2.  The partitioned F and
     An against the serial ones there and at a random state; the dry run's
     stage 3 at PARALLEL_GRID (a ShardedOcean continuation step) against
-    the serial Continuation on an Ocean with the same solve; the
+    the serial Continuation on an Ocean with the same solver parameters
+    (ShardedOcean.solve is Ocean.solve); the
     partitioned sweeps of PARALLEL_SWEEPS.  Returns F, the Jacobian, the
     Double solve's update, the step and the sweeps (by name: the sweep
     and the stats), for (b)."""
@@ -2641,11 +2669,12 @@ def _parallel_one_rank(multichip, card_line: str):
         ref = o.apply_matrix(-o.rhs)
         gap = float((y - ref).abs().max() / ref.abs().max())
         sweeps = {}
-        for name, (opts, _) in PARALLEL_SWEEPS.items():
+        for name, (opts, build, _) in PARALLEL_SWEEPS.items():
             torch.cuda.reset_peak_memory_stats()
             prec = PartitionedBGS(An, o.landm, dom,
                                   int_row=int_row_of(o, float(o.cfg.int_sign)),
-                                  apply_opts=opts, held=(An,))
+                                  apply_opts=opts, build_opts=build,
+                                  held=(An,))
             z = prec(-F)
             sweeps[name] = (z.cpu().numpy(), prec.stats(),
                             torch.cuda.max_memory_allocated())
@@ -2683,9 +2712,7 @@ def _parallel_one_rank(multichip, card_line: str):
         thcm3, solver3 = multichip.stage3_config(PARALLEL_GRID, (1, 1))
         step = multichip.sharded_continuation(dom, thcm3, solver3,
                                               multichip.STAGE3_CONT)
-        so = Ocean({"THCM": dict(thcm3, Scaling="None")},
-                   solver_params=dict(solver3,
-                                      Preconditioner=PARALLEL_SERIAL_PREC),
+        so = Ocean({"THCM": dict(thcm3)}, solver_params=dict(solver3),
                    data_dir=os.path.join(REPO, "data"), device=dom.device)
         t0 = time.perf_counter()
         sres = Continuation(so, dict(multichip.STAGE3_CONT)).run()
@@ -2767,11 +2794,11 @@ def _parallel_sweeps(out, k0: int, sweeps: dict, card_line: str) -> None:
                            st, res["peak"], card_line)
                 print(f"parallel (b) {shape[0]}x{shape[1]} rank {rank} "
                       f"sweep of -F, {name}: against (a)'s {gap:.3e} (limit "
-                      f"{PARALLEL_SWEEPS[name][1]:g}); {st['bytes']} bytes, "
+                      f"{PARALLEL_SWEEPS[name][2]:g}); {st['bytes']} bytes, "
                       f"(a)'s / {PARALLEL_RANKS} plus the pieces held whole "
                       f"{bound:.0f}", flush=True)
                 if not (np.isfinite(sw["z"]).all()
-                        and gap <= PARALLEL_SWEEPS[name][1]):
+                        and gap <= PARALLEL_SWEEPS[name][2]):
                     raise AssertionError(f"parallel (b) {shape}: the "
                                          f"partitioned sweep ({name}) is "
                                          f"{gap:.3e} from (a)'s")
@@ -2813,7 +2840,8 @@ def phase_parallel(hopper, card_line: str) -> dict:
                                gathered=False, timed=True))
              for shape in PARALLEL_SHAPES]
     jobs += [("bgs", dict(thcm=GLOBAL_THCM, shape=shape, f32=False,
-                          cases=[o for o, _ in PARALLEL_SWEEPS.values()]))
+                          cases=[o for o, _, _ in PARALLEL_SWEEPS.values()],
+                          builds=[b for _, b, _ in PARALLEL_SWEEPS.values()]))
              for shape in PARALLEL_SHAPES]
     jobs += [("dryrun", {"grid": PARALLEL_GRID}), ("launches", {})]
     out = multichip.run_ranks(PARALLEL_RANKS, jobs, device="cuda",

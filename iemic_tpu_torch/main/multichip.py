@@ -305,6 +305,26 @@ def job_solve(device, thcm, shape, x, tol, maxiter, landm=None,
             "bgs": _bgs_stats(solve)}
 
 
+def job_model_solve(device, thcm, shape, solver, x, landm=None,
+                    group=None):
+    """ShardedOcean.solve of J z = -F at the state x, on the ocean of thcm
+    and the solver parameters solver: the gathered z, MV, relres and
+    seconds, and the stats of the solve's BGS preconditioner."""
+    from ..parallel import ShardedOcean
+    dom = _ocean_domain(device, thcm, shape, group)
+    model = ShardedOcean(_ocean(dom.device, thcm, landm, state=x,
+                                solver=solver), dom)
+    model.compute_rhs()
+    model.compute_jacobian()
+    t0 = time.perf_counter()
+    z = model.solve(-model.rhs)
+    _sync(dom.device)
+    return {"z": dom.gather(z).cpu().numpy(), "mv": model.solve_iters,
+            "relres": model.solve_relres,
+            "seconds": time.perf_counter() - t0,
+            "bgs": _bgs_stats(model._solve)}
+
+
 def job_newton(device, thcm, shape, x, tol, maxiter, landm=None):
     """One Newton step through make_sharded_ops (sharded residual and
     Jacobian, Double solve) from the state x: the gathered new state."""
@@ -368,17 +388,19 @@ def job_assembly(device, thcm, shape, x, landm=None, gathered=True,
 
 
 def job_bgs(device, thcm, shape, An=None, r=None, landm=None,
-            cases=({},), f32=True):
+            cases=({},), builds=None, f32=True):
     """The partitioned BGS preconditioner (``parallel.bgs``) built and
     applied on this rank's block of the rank grid shape, on the ocean of
     thcm and landm (its integral-condition row), with the domain's gather
     refusing in the builds and sweeps.  An and r are the whole stencil
     tensor and vector; without them this rank's block of the Jacobian at
     the ocean's state (the partitioned assembly) and r = -F.  For each
-    apply_opts of cases, the gathered sweep of r and the preconditioner's
-    stats; with f32, also the f32 sweep of the first case's factors cast
-    as the Mixed solve casts them.  On the card, the peak of the device
-    memory this rank allocated from the first build on."""
+    apply_opts of cases, with the build_opts of builds beside it (the
+    sharded solve's build without builds), the gathered sweep of r and
+    the preconditioner's stats; with f32, also the f32 sweep of the first
+    case's factors cast as the Mixed solve casts them.  On the card, the
+    peak of the device memory this rank allocated from the first build
+    on."""
     from ..parallel import make_sharded_ops
     from ..parallel.bgs import PartitionedBGS, int_row_of
     dom = _ocean_domain(device, thcm, shape)
@@ -397,15 +419,17 @@ def job_bgs(device, thcm, shape, An=None, r=None, landm=None,
         torch.cuda.reset_peak_memory_stats(dom.device)
     dom.gather = _refuse_gather
     sweeps = []
-    for k, opts in enumerate(cases):
+    for k, (opts, bopts) in enumerate(zip(cases,
+                                          builds or [None] * len(cases))):
         prec = PartitionedBGS(An_l, ocean.landm, dom, int_row=int_row,
-                              apply_opts=opts, held=(An_l,))
+                              apply_opts=opts, build_opts=bopts,
+                              held=(An_l,))
         z = prec(r_l)
         z32 = None
         if f32 and k == 0:
             z32 = PartitionedBGS(An_l, ocean.landm, dom, int_row=int_row,
-                                 dtype=torch.float32, apply_opts=opts)(
-                r_l.to(torch.float32))
+                                 dtype=torch.float32, apply_opts=opts,
+                                 build_opts=bopts)(r_l.to(torch.float32))
         sweeps.append((z, z32, prec.stats()))
         del prec
     del dom.gather
@@ -640,7 +664,8 @@ def job_dryrun(device, grid=None):
 
 
 JOBS = {"halo": job_halo, "stencil": job_stencil, "ops": job_ops,
-        "solve": job_solve, "newton": job_newton, "gate": job_gate,
+        "solve": job_solve, "model_solve": job_model_solve,
+        "newton": job_newton, "gate": job_gate,
         "bgs": job_bgs,
         "assembly": job_assembly, "columns": job_columns,
         "continuation": job_continuation,

@@ -33,6 +33,14 @@ from . import assembly, constants as c, landmask as lm
 from .assembly import CouplingCoefs, ForcingFields
 
 F64 = torch.float64
+# the Mixed solve's refinement (_solve_mixed_host, _gmres_ir_host): a
+# refinement sweep's inner f32 solve's tolerance and its stall limit, at
+# most MIXED_SWEEPS sweeps, then a GMRES-IR tail of at most
+# MIXED_TAIL_ITERS outer iterations.  ShardedOcean's solve takes the same.
+MIXED_INNER_TOL = 1e-6
+MIXED_STALL_LIMIT = 60
+MIXED_SWEEPS = 12
+MIXED_TAIL_ITERS = 120
 
 
 def default_thcm_params() -> ParameterList:
@@ -570,11 +578,11 @@ class Ocean:
             return _proj(z.reshape(-1), nullq32).to(r.dtype)
 
         res = fgmres_flat(mv_h, pc_h, r, torch.zeros_like(r), tol,
-                          self._maxiter, stall_limit=60)
+                          self._maxiter, stall_limit=MIXED_STALL_LIMIT)
         return _proj(res.x, nullq), res.iters, res.relres
 
     def _solve_mixed_host(self, b_s, tol, nullq, factors32,
-                          max_refine: int = 12):
+                          max_refine: int = MIXED_SWEEPS):
         """Mixed-precision solve with host-driven f64 iterative
         refinement, a contraction guard with rollback, and a GMRES-IR
         tail (see the JAX module for the rationale)."""
@@ -588,7 +596,8 @@ class Ocean:
         for _ in range(max_refine):
             if rn <= target:
                 break
-            dz, its, _ = self._inner(factors32, r / rn, nullq, 1e-6)
+            dz, its, _ = self._inner(factors32, r / rn, nullq,
+                                     MIXED_INNER_TOL)
             total += its
             x_new = x + dz * rn
             r_new = flat_b - self._mv64(x_new, nullq)
@@ -607,7 +616,7 @@ class Ocean:
         return x.reshape(b_s.shape), total, rn / max(bn, 1e-300)
 
     def _gmres_ir_host(self, flat_b, x, r, rn, target, nullq, factors32,
-                       maxouter: int = 120):
+                       maxouter: int = MIXED_TAIL_ITERS):
         """GMRES-IR: outer f64 FGMRES on (R J) dx = r preconditioned by
         full-depth f32 inner solves at a loose 1e-2; monotone (a worse
         iterate is rolled back).  Returns inner iterations only."""

@@ -8,30 +8,36 @@ hand here, in :class:`PartitionedGrid`, and ``solvers.bgs`` keeps the one
 copy of the sweep's order of operations (``bgs.build``/``bgs.apply`` with
 ``grid=``).  What each piece needs, z never being partitioned:
 
-  * local: every sub-block, the column inverses, the depth average Spp,
+  * local: every sub-block, the column inverses, the rho/mu transform,
     the Dirichlet rows, the column solves of the sweep;
   * a 1-deep halo (``halo_pad_shard``) per sub-block stencil product, one
     per vector where two products take the same vector;
   * a sum over the ranks (``Domain.allreduce``) per dot product, norm and
-    maximum: the null-mode projections, the integral-condition row (which
-    the owning rank writes), the value of the residual at that row's
-    point, and the inner FGMRES's Gram-Schmidt;
+    maximum: the null-mode projections and Gram-Schmidt, the
+    integral-condition row (which the owning rank writes), the value of
+    the residual at that row's point, and the inner FGMRES's
+    Gram-Schmidt;
   * the zonal line solves (Auv's line correction, the ATS multigrid's
     smoother): a line spans the whole row of ranks, so each rank builds
     the line inverses from the three bands gathered along its row and
     keeps its own rows of them; a solve gathers the residual along the
     row (point-to-point messages within the row, no other rank's bytes)
     and multiplies by those rows;
-  * the ATS multigrid: its finest level partitioned, the coarser levels
-    whole on every rank, each rank's Galerkin contributions and restricted
-    residual placed into the whole coarse field and summed over the
-    ranks (2x2 aggregates straddle the blocks where a block side is odd),
-    the prolongation sliced to the block; a hierarchy of one level (the
-    whole grid at most 64 columns) is assembled whole the same way;
-  * the depth-averaged 2D saddle's SIMPLE factors and Chat multigrid
-    (m*n points, a twelfth of one 3D variable at 96x38x12): built whole
-    on every rank from the summed Spp, and the Chat V-cycle's input made
-    whole and its output sliced.
+  * the 3D multigrids (ATS's, and Auv's where asked): the finest level
+    partitioned, the coarser levels whole on every rank, each rank's
+    Galerkin contributions and restricted residual placed into the whole
+    coarse field and summed over the ranks (2x2 aggregates straddle the
+    blocks where a block side is odd), the prolongation sliced to the
+    block; a hierarchy of one level (the whole grid at most 64 columns)
+    is assembled whole the same way;
+  * the depth-averaged 2D saddle: its operator Spp, point-block Jacobi
+    inverses, SIMPLE factors, Chat multigrid and multigrid (m*n points,
+    a twelfth of one 3D variable at 96x38x12) built whole on every rank
+    from the summed Spp; a solve of it (scheme KRYLOV, orderings M2 and
+    M3) makes its right-hand side whole by one sum over the ranks, runs
+    its inner FGMRES on the whole field with no message round, and keeps
+    its block of the result; the Chat V-cycle's input is made whole and
+    its output sliced the same way.
 
 Nothing gathers the stencil tensor (``Domain.gather``), but the pieces
 above that are made whole on every rank are sums over the ranks of whole
@@ -43,10 +49,10 @@ every operation is the whole grid's, and the sweep equals the serial one
 bit for bit; it may then replay its saddle iteration from CUDA graphs,
 which cannot record the host-staged exchanges of more ranks.
 
-The factors are the JAX package's sharded solve's: MG on ATS, Columns on
-Auv, Jacobi on the 2D saddle, no rho/mu transform.  Of the sweep's
-options, the 2D saddle scheme KRYLOV and the orderings M2 and M3 are not
-partitioned (``check_branches`` raises).
+Every branch of ``bgs.build`` and ``bgs.apply`` runs partitioned.  The
+build is ``bgs.build``'s keywords over the JAX package's sharded solve's
+(MG on ATS, :data:`SHARDED_BUILD`); ``check_branches`` refuses, before
+the build, the sweep options ``bgs.apply`` itself refuses.
 """
 
 from __future__ import annotations
@@ -67,23 +73,22 @@ from .halo import halo_pad_shard
 _OFFS = offsets()
 _PADDED_INDEX = {}
 
-# the sweep's branches that run partitioned, by keyword of bgs.apply
-_APPLY = {"permutation": (1,), "spp_scheme": ("SI", "SL", "SR")}
-_NAMES = {("permutation", 2): "the ordering M2",
-          ("permutation", 3): "the ordering M3",
-          ("spp_scheme", "KRYLOV"): "the 2D saddle scheme KRYLOV"}
+# bgs.build's keywords of the JAX package's sharded solve
+# (iemic_tpu/parallel/halo.py, make_sharded_solve): MG on ATS, the rest at
+# bgs.build's defaults
+SHARDED_BUILD = {"ts_precond": "MG"}
 
 
 def check_branches(apply_opts: dict) -> None:
-    """Raise ValueError, naming the branch, for a bgs.apply option whose
-    branch the partitioned sweep does not cover."""
-    for key, ok in _APPLY.items():
-        if key in apply_opts and apply_opts[key] not in ok:
-            name = _NAMES.get((key, apply_opts[key]),
-                              f"{key}={apply_opts[key]!r}")
-            raise ValueError(f"the partitioned BGS sweep does not cover "
-                             f"{name}; the sharded BGS solve takes "
-                             f"ordering M1 and saddle schemes SI/SL/SR")
+    """Raise ValueError for the bgs.apply options that bgs.apply refuses
+    (an ordering other than M1, M2 and M3; the symmetric correction of an
+    ordering other than M1), before any factor is built."""
+    perm = apply_opts.get("permutation", 1)
+    if perm not in (1, 2, 3):
+        raise ValueError(f"BGS: invalid permutation {perm}")
+    if apply_opts.get("symmetric") and perm != 1:
+        raise ValueError("BGS: symmetric Gauss-Seidel requires "
+                         "permutation == 1")
 
 
 def int_row_of(ocean, scale: float):
@@ -318,11 +323,11 @@ def nbytes(*objs) -> int:
 
 
 def replicated_bytes(prec: bgs.BGSPrec) -> int:
-    """Bytes of the pieces every rank holds whole: the 2D saddle's SIMPLE
-    factors and Chat multigrid, and the multigrids' coarser levels and
-    dense coarsest inverses (the finest level's, where the hierarchy has
-    one level)."""
-    whole = [prec.spp_simple, prec.spp_mg]
+    """Bytes of the pieces every rank holds whole: the 2D saddle's
+    operator, point-block inverses, SIMPLE factors, Chat multigrid and
+    multigrid, and the 3D multigrids' coarser levels and dense coarsest
+    inverses (the finest level's, where the hierarchy has one level)."""
+    whole = [prec.Spp, prec.Spp_binv, prec.spp_simple, prec.spp_mg]
     for h in (prec.ts_mg, prec.uv_mg):
         if h is not None:
             whole += [h.levels[1:], h.coarse_inv]
@@ -342,16 +347,18 @@ class PartitionedBGS:
     ``bgs.apply`` sweep of this rank's block of a vector.  Every rank of
     the domain builds and calls together.
 
-    The factors are the JAX package's sharded solve's (MG on ATS);
-    apply_opts are bgs.apply's keywords, and ``check_branches`` refuses a
-    branch that is not partitioned.  On CUDA and one rank the saddle
-    iteration replays CUDA graphs ("graphs"), on more ranks it runs
-    eagerly ("eager").  ``stats()`` gives the per-rank numbers: bytes,
-    build seconds, sweeps, seconds, message rounds and whole-field bytes
-    per sweep."""
+    build_opts are bgs.build's keywords over :data:`SHARDED_BUILD` (the
+    JAX package's sharded solve's build, MG on ATS); apply_opts are
+    bgs.apply's, and ``check_branches`` refuses before the build what
+    bgs.apply would refuse.  On CUDA and one rank the saddle iteration
+    replays CUDA graphs ("graphs"), on more ranks it runs eagerly
+    ("eager").  ``stats()`` gives the per-rank numbers: bytes, build
+    seconds, sweeps, seconds, message rounds and whole-field bytes per
+    sweep."""
 
     def __init__(self, An_l: torch.Tensor, landm, domain, *, int_row=None,
-                 dtype=None, apply_opts: dict | None = None, held=()):
+                 dtype=None, apply_opts: dict | None = None,
+                 build_opts: dict | None = None, held=()):
         self.apply_opts = dict(apply_opts or {})
         check_branches(self.apply_opts)
         self.domain = domain
@@ -360,7 +367,8 @@ class PartitionedBGS:
         _sync(domain.device)
         t0 = time.perf_counter()
         factors = bgs.build(An_l, landm, periodic=domain.periodic,
-                            ts_precond="MG", int_row=int_row, grid=self.grid)
+                            int_row=int_row, grid=self.grid,
+                            **dict(SHARDED_BUILD, **(build_opts or {})))
         if dtype is not None:
             factors = _to_dtype(factors, dtype)
         _sync(domain.device)

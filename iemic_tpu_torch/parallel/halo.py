@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.ocean.ocean import MIXED_SWEEPS
 from ..ops.stencil import OCEAN, SS, TT
 from ..solvers.fgmres import fgmres_flat, fgmres_host
 
@@ -235,11 +236,26 @@ def _row_scale(ocean, domain, An_l):
     return torch.as_tensor(R, dtype=An_l.dtype, device=An_l.device), rint
 
 
+def check_method(preconditioner: str, precision: str) -> None:
+    """Raise ValueError, naming it, for a method or combination of the
+    solver parameters that the sharded solve does not run: it runs BGS
+    (Double or Mixed) and Columns (Double)."""
+    if preconditioner not in ("BGS", "Columns"):
+        raise ValueError(f"the sharded solve does not run Preconditioning "
+                         f"{preconditioner!r}: it runs BGS and Columns")
+    if preconditioner == "Columns" and precision == "Mixed":
+        raise ValueError("the sharded solve does not run Preconditioning "
+                         "'Columns' with Precision 'Mixed': the sharded "
+                         "Columns solve takes Precision Double")
+
+
 def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                        preconditioner: str = "BGS",
                        apply_opts: dict | None = None,
+                       build_opts: dict | None = None,
+                       scale_double: bool = False,
                        inner_tol: float = 1e-4, stall_limit: int = 8,
-                       nullq="ocean"):
+                       tail_iters: int = 60, nullq="ocean"):
     """Sharded BGS-preconditioned FGMRES solve (the full solve path of
     §3.1 over the ranks): the Krylov matvec exchanges halos, the block-GS
     preconditioner is factored and applied on each rank's block
@@ -254,29 +270,34 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
     partitioned.  Its solve is ``Ocean._solve_operator``'s with Columns
     and Double: THCM row scaling where the ocean asks for it (the averaged
     centre block a sum over the ranks) and the deflation above; Double
-    only.
+    only.  Any other method, and Columns with Mixed, raise ValueError
+    naming it (:func:`check_method`).
 
     Returns ``solve(An_l, b_l, tol, maxiter) -> ShardedSolve`` — the
-    multi-rank equivalent of Ocean.solve, for the np in {1, 2, 4}
+    multi-rank equivalent of Ocean.solve, for the np in {1, 2, 4, 8}
     equivalence regression (reference src/tests/CMakeLists.txt:77-87).
     The BGS solve keeps its factors while the solves take the same
     tensor, as Ocean keeps its own; ``solve.preconditioner()`` is the
     PartitionedBGS of the last tensor (None before the first solve).
 
-    precision="Double" is the all-f64 path.  "Mixed" solves the
-    THCM-row-scaled system with f32 Krylov operators (matvec and sweep)
-    inside f64 Arnoldi: host-driven f64 iterative-refinement sweeps (at
-    most 12, each an inner solve to ``inner_tol`` that gives up after
-    ``stall_limit`` stalled iterations), then a GMRES-IR tail (an outer
-    f64 FGMRES of at most 60 iterations preconditioned by inner solves at
-    1e-2) where the sweeps stop short.  The factors are the JAX package's
-    sharded solve's (MG on ATS); apply_opts are the sweep's per-block
-    knobs (``bgs.apply``'s keywords), and the multichip dry run passes a
-    lighter sweep.  A branch of the sweep that is not partitioned (the
-    saddle scheme KRYLOV, the orderings M2 and M3) raises ValueError.
+    The BGS factors are ``bgs.build``'s with build_opts over the JAX
+    package's sharded solve's build (MG on ATS); apply_opts are the
+    sweep's keywords (``bgs.apply``'s).  precision="Double" is the all-f64
+    path, on the THCM-row-scaled system where scale_double and the ocean
+    ask for it (as ``Ocean.solve`` solves it; the dry run's Double solve
+    is the JAX package's, unscaled).  "Mixed" solves the THCM-row-scaled
+    system with f32 Krylov operators (matvec and sweep) inside f64
+    Arnoldi: host-driven f64 iterative-refinement sweeps (at most
+    ``Ocean``'s MIXED_SWEEPS, each an inner solve to ``inner_tol`` that
+    gives up after ``stall_limit`` stalled iterations), then a GMRES-IR
+    tail (an outer f64 FGMRES of at most tail_iters iterations
+    preconditioned by inner solves at 1e-2) where the sweeps stop short.  The defaults are the
+    dry run's (the JAX package's sharded solve's); ``ShardedOcean`` passes
+    ``Ocean.solve``'s.
     """
     from .bgs import PartitionedBGS, check_branches, int_row_of
     _check_device(ocean, domain)
+    check_method(preconditioner, precision)
     apply_kw = dict(apply_opts or {})
     cfg = ocean.cfg
     ml, nl = domain.local_shape
@@ -295,13 +316,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         return v if Q is None else v - Q @ domain.allreduce(Q.T @ v)
 
     if preconditioner == "Columns":
-        if precision != "Double":
-            raise ValueError("the sharded Columns solve takes Precision "
-                             f"Double, not {precision}")
         return _columns_solve(ocean, domain, matvec, proj, nullq, shape)
-    if preconditioner != "BGS":
-        raise ValueError(f"sharded solve: preconditioner {preconditioner} "
-                         "(the sharded ones are BGS and Columns)")
     check_branches(apply_kw)
     built = {}
 
@@ -314,17 +329,35 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
             built.update(An=An_l, ops=ops, prec=prec)
         return built["ops"], built["prec"]
 
-    def preconditioner_of(An_s, int_scale, dtype=None, held=()):
+    def scaled(An_l, scale: bool):
+        """The block row-scaled where scale and the ocean ask for it, its
+        row scale (None unscaled) and the integral row's scale."""
+        if not (scale and cfg.scaling == "THCM"):
+            return An_l, None, 1.0
+        R_l, rint = _row_scale(ocean, domain, An_l)
+        return An_l * R_l[None, :, None], R_l, rint
+
+    def preconditioner_of(An_s, rint, dtype=None, held=()):
         return PartitionedBGS(An_s, ocean.landm, domain,
-                              int_row=int_row_of(ocean, int_scale),
-                              dtype=dtype, apply_opts=apply_kw, held=held)
+                              int_row=int_row_of(ocean, rint * cfg.int_sign),
+                              dtype=dtype, apply_opts=apply_kw,
+                              build_opts=build_opts, held=held)
+
+    def prep_double(An_l):
+        """The (row-scaled) block, its row scale, the integral row's scale
+        and the f64 sweep of the block."""
+        An_s, R_l, rint = scaled(An_l, scale_double)
+        return (An_s, R_l, rint), preconditioner_of(An_s, rint,
+                                                    held=(An_s,))
 
     def solve_double(An_l, b_l, tol, maxiter):
-        _, sweep = factored(An_l, lambda A: (None, preconditioner_of(
-            A, float(cfg.int_sign), held=(A,))))
+        (An_s, R_l, rint), sweep = factored(An_l, prep_double)
+        if R_l is not None:
+            b_l = b_l * R_l
 
         def mv(v):
-            return proj(matvec(An_l, v.reshape(shape)).reshape(-1), nullq)
+            return proj(matvec(An_s, v.reshape(shape), rint).reshape(-1),
+                        nullq)
 
         def pc(v):
             return proj(sweep(v.reshape(shape)).reshape(-1), nullq)
@@ -351,19 +384,15 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
     # row-scaled system (R J) z = R b is solved, like the production path
     # (scaling.py THCM row scaling, Ocean.C:1206-1214): the raw Jacobian's
     # rows span many orders, which f32 would lose.
-    max_sweeps = 12
     nullq32 = None if nullq is None else nullq.to(F32)
 
-    def prep(An_l):
+    def prep_mixed(An_l):
         """The row-scaled block, its f32 copy, the f32 sweep of it, the
         row scale and the integral row's scale."""
-        R_l, rint = _row_scale(ocean, domain, An_l) \
-            if cfg.scaling == "THCM" else (None, 1.0)
-        if R_l is not None:
-            An_l = An_l * R_l[None, :, None]
-        An32 = An_l.to(F32)
-        return (An_l, An32, R_l, rint), preconditioner_of(
-            An_l, rint * cfg.int_sign, dtype=F32, held=(An_l, An32))
+        An_s, R_l, rint = scaled(An_l, True)
+        An32 = An_s.to(F32)
+        return (An_s, An32, R_l, rint), preconditioner_of(
+            An_s, rint, dtype=F32, held=(An_s, An32))
 
     def inner(An32, sweep32, r, tol, rint, maxiter):
         """One f32-operator Krylov solve with f64 Arnoldi of the
@@ -384,7 +413,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         return proj(res.x, nullq), res.iters
 
     def solve_mixed(An_l, b_l, tol, maxiter):
-        (An_l, An32, R_l, rint), sweep32 = factored(An_l, prep)
+        (An_l, An32, R_l, rint), sweep32 = factored(An_l, prep_mixed)
 
         def mv64(v):
             return proj(matvec(An_l, v.reshape(shape), rint).reshape(-1),
@@ -398,7 +427,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
         x = torch.zeros_like(flat_b)
         r, rn = flat_b, bn
         total = outer = 0
-        for _ in range(max_sweeps):
+        for _ in range(MIXED_SWEEPS):
             if rn <= target:
                 break
             dz, its = inner(An32, sweep32, r / rn, inner_tol, rint, maxiter)
@@ -426,7 +455,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                 return dz * vn
 
             dx, res = fgmres_host(mv64, r, prec=pc, tol=target / rn,
-                                  maxiter=60, reduce=domain.reduce)
+                                  maxiter=tail_iters, reduce=domain.reduce)
             outer = res.iters
             x_new = x + dx
             rn_new = domain.norm(flat_b - mv64(x_new))

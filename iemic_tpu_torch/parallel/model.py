@@ -17,30 +17,50 @@ from __future__ import annotations
 
 import torch
 
+from ..models.ocean import ocean as _ocean
+from ..solvers import factory
 from ..utils import logging as log
-from .halo import make_sharded_ops, make_sharded_solve, sharded_deflator
+from .halo import (check_method, make_sharded_ops, make_sharded_solve,
+                   sharded_deflator)
+
+# Ocean.solve's Mixed refinement (Ocean._solve_mixed_host, _gmres_ir_host)
+OCEAN_MIXED = {"inner_tol": _ocean.MIXED_INNER_TOL,
+               "stall_limit": _ocean.MIXED_STALL_LIMIT,
+               "tail_iters": _ocean.MIXED_TAIL_ITERS}
 
 
 class ShardedOcean:
     """The serial ``ocean`` (an ``Ocean`` on this rank's device, at the
-    starting state) over the ranks of ``domain``.  The solve is the one
-    the ocean's solver parameters name: Preconditioning BGS (factored and
-    applied on the rank's block, Double or Mixed) or Columns (local to the
-    rank, Double), at their FGMRES tolerance and iterations, with the
+    starting state) over the ranks of ``domain``.  The solve is
+    ``Ocean.solve``'s, on the ranks: the method the ocean's solver
+    parameters name, Preconditioning BGS (factored and applied on the
+    rank's block, Double or Mixed, with every option of the Preconditioner
+    sublist, read by ``factory.bgs_options`` as the serial factory reads
+    them) or Columns (local to the rank, Double), on the THCM-row-scaled
+    system where the ocean scales, with the Mixed refinement of
+    ``Ocean.solve``, at the FGMRES tolerance and iterations, with the
     pressure null modes of the first Jacobian deflated as ``Ocean``
-    deflates them."""
+    deflates them.  Another method, or Columns with Mixed, raises
+    ValueError naming it here."""
 
     def __init__(self, ocean, domain):
+        sp = ocean.solver_params
+        prec = dict(sp.sublist("Preconditioner").items()) \
+            if sp.is_sublist("Preconditioner") else {}
+        if not prec.get("Method"):
+            prec["Method"] = sp.get("Preconditioning")
+        params = factory.preconditioner_params(prec)
+        self._method = params.get("Method")
+        self._precision = sp.get("Precision")
+        check_method(self._method, self._precision)
+        self._build_opts = self._apply_opts = None
+        if self._method == "BGS":
+            self._build_opts, self._apply_opts = factory.bgs_options(params)
         self.ocean = ocean
         self.domain = domain
         self.cfg = ocean.cfg
         ops = make_sharded_ops(ocean, domain)
         self._rhs, self._jac = ops["rhs"], ops["jac"]
-        sp = ocean.solver_params
-        prec = dict(sp.sublist("Preconditioner").items()) \
-            if sp.is_sublist("Preconditioner") else {}
-        self._method = prec.get("Method") or sp.get("Preconditioning")
-        self._precision = sp.get("Precision")
         self._solve = None
         self.state = domain.shard_state(ocean.state)
         self.rhs = torch.zeros_like(self.state)
@@ -78,7 +98,9 @@ class ShardedOcean:
             nullq = sharded_deflator(self.ocean, self.domain, self.jac)
             self._solve = make_sharded_solve(
                 self.ocean, self.domain, precision=self._precision,
-                preconditioner=self._method, nullq=nullq)
+                preconditioner=self._method, apply_opts=self._apply_opts,
+                build_opts=self._build_opts, scale_double=True,
+                nullq=nullq, **OCEAN_MIXED)
         return self._solve
 
     def solve(self, b):

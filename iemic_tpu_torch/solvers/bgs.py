@@ -99,7 +99,9 @@ def _apply_2d(S, x, periodic):
 
 
 class BGSPrec(NamedTuple):
-    """Factored state of the block-GS preconditioner."""
+    """Factored state of the block-GS preconditioner.  The depth-averaged
+    2D saddle's pieces (Spp, Spp_binv, spp_simple, spp_mg) are of the
+    whole grid, the others of the grid's part (see :func:`build`)."""
     A_uvuv: torch.Tensor      # (27, 2, 2, l, m, n) sub-blocks of An
     A_uvp: torch.Tensor       # (27, 2, 1, ...)
     A_puv: torch.Tensor       # (27, 1, 2, ...)
@@ -119,7 +121,8 @@ class BGSPrec(NamedTuple):
     aw_dummy: torch.Tensor
     svp: torch.Tensor         # (2, l, m, n) pressure null modes
     sv2d: torch.Tensor        # (2, m, n) barotropic null modes
-    spp_simple: object        # saddlepoint.SppSimple
+    spp_simple: object        # saddlepoint.SppSimple; its nullmodes are
+    #                           sv2d of the whole grid
     ts_null: torch.Tensor     # (2, 2, l, m, n) validated TS null modes
     dir_mask: torch.Tensor    # (6, l, m, n) 1.0 on pure-diagonal rows
     dir_diag: torch.Tensor    # (6, l, m, n) their diagonal values
@@ -176,16 +179,17 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     else:
         icoeff = iidx = iscale = None
 
-    # ---- depth-averaged 2D saddle over (u, v, p) ---------------------
+    # ---- depth-averaged 2D saddle over (u, v, p), of the whole grid --
     sub = An[:, _UVP][:, :, _UVP]                # (27, 3, 3, l, m, n)
     w = torch.ones((l,), **kw) if dzw is None \
         else torch.as_tensor(np.asarray(dzw, np.float64), **kw)
-    Spp = torch.einsum('pABkji,k->pABji',
-                       sub[:9] + sub[9:18] + sub[18:27], w / w.sum())
+    Spp = g.whole(torch.einsum('pABkji,k->pABji',
+                               sub[:9] + sub[9:18] + sub[18:27],
+                               w / w.sum()))
 
     # point-block Jacobi factors of Spp with a shift on the singular
     # pressure point-block (the p diagonal of the saddle is 0)
-    D = Spp[4].permute(2, 3, 0, 1).reshape(m * n, 3, 3)
+    D = Spp[4].permute(2, 3, 0, 1).reshape(mw * nw, 3, 3)
     scale = torch.clamp(torch.amax(torch.abs(D), dim=(1, 2), keepdim=True),
                         min=1e-12)
     ee = torch.zeros(3, **kw)
@@ -201,8 +205,8 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
 
     # pressure null modes (constant + checkerboard over ocean points,
     # TRIOS_BlockPreconditioner.H:489-494) and their 2D shadows, of the
-    # whole mask; the 2D saddle's SIMPLE factors and its multigrids are
-    # built whole
+    # whole mask; the 2D saddle's SIMPLE factors and multigrids, like
+    # its operator, are whole
     ij = (np.arange(mw)[:, None] + np.arange(nw)[None, :]) % 2
     cbpat = torch.as_tensor(np.where(ij == 0, 1.0, -1.0), **kw)
 
@@ -214,8 +218,7 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     sv2d_g = torch.stack([unit(wet), unit(wet * cbpat)])
     sv2d = g.local(sv2d_g)
 
-    Spp_g = g.whole(Spp)
-    spp_simple = build_simple(Spp_g, sv2d_g, periodic=periodic,
+    spp_simple = build_simple(Spp, sv2d_g, periodic=periodic,
                               prolong_w=spp_prolong_w)
 
     # 2D multigrid for the depth-averaged saddle: the 9-point stencil as
@@ -223,7 +226,7 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
     spp_mg = None
     if spp_precond == "MG":
         Spp27 = An.new_zeros((27, 3, 3, 1, mw, nw))
-        Spp27[:9, :, :, 0] = Spp_g
+        Spp27[:9, :, :, 0] = Spp
         spp_mg = _mg.build(Spp27, periodic=periodic,
                            prolong_w=spp_prolong_w)
 
@@ -374,6 +377,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
     :func:`build`; the whole grid by default)."""
     g = grid if grid is not None else _mg.Whole(periodic)
     _, l, m, n = r.shape
+    mw, nw = g.shape(r)          # the whole grid's
     buv, bw, bp, bts = r[_UV], r[_W], r[_P], r[_TS]
     Nuv = 2 * l * m * n
     st = g.st
@@ -390,11 +394,15 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
         return deflate(p2, prec.sv2d, total=g.sum)
 
     # ---- the depth-averaged 2D saddle (scheme KRYLOV, M2, M3) --------
+    # solved on the whole (3, m, n) field: its right-hand side is made
+    # whole, its inner FGMRES sums over the whole field, and the solution
+    # is cut back to grid's part
     def spp_mv(v):
-        return _apply_2d(prec.Spp, v.reshape(3, m, n), periodic).reshape(-1)
+        return _apply_2d(prec.Spp, v.reshape(3, mw, nw),
+                         periodic).reshape(-1)
 
     def spp_pc(v):
-        v3 = v.reshape(3, m, n)
+        v3 = v.reshape(3, mw, nw)
         if spp_scheme in ("SI", "SL", "SR"):
             z = apply_simple(prec.spp_simple, v3, periodic=periodic,
                              scheme=spp_scheme)
@@ -402,18 +410,18 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
             z = _mg.apply(prec.spp_mg, v3[:, None], periodic=periodic)[:, 0]
         else:
             z = torch.bmm(prec.Spp_binv,
-                          v3.permute(1, 2, 0).reshape(m * n, 3, 1)
-                          ).reshape(m, n, 3).permute(2, 0, 1)
+                          v3.permute(1, 2, 0).reshape(mw * nw, 3, 1)
+                          ).reshape(mw, nw, 3).permute(2, 0, 1)
         # deflate the barotropic pressure null modes (const +
         # checkerboard) so the inner Krylov never grows them
-        return torch.cat([z[:2], p_deflate(z[2])[None]]).reshape(-1)
+        return torch.cat([z[:2], deflate(
+            z[2], prec.spp_simple.nullmodes)[None]]).reshape(-1)
 
     def spp_solve(ruv, rp):
-        rbar = torch.cat([ruv.mean(dim=1), rp.mean(dim=1)])
+        rbar = g.whole(torch.cat([ruv.mean(dim=1), rp.mean(dim=1)]))
         zbar = spp_pc(rbar.reshape(-1)) if nit_spp == 0 \
-            else _inner_fgmres(spp_mv, spp_pc, rbar, tol_spp, nit_spp,
-                               g.reduce)
-        return zbar.reshape(3, m, n)
+            else _inner_fgmres(spp_mv, spp_pc, rbar, tol_spp, nit_spp)
+        return g.local(zbar.reshape(3, mw, nw))
 
     # ---- the 3D saddle of SolveLower1 --------------------------------
     def lift(pbar):

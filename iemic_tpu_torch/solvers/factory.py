@@ -98,6 +98,48 @@ def _prolongation_weight(params: ParameterList, blk: str) -> float:
     return float(params.get("MG prolongation weight"))
 
 
+def preconditioner_params(params: ParameterList | dict | None
+                          ) -> ParameterList:
+    """The Preconditioner list as the methods read it: the defaults of
+    :func:`default_prec_params` set where it names nothing, and the
+    nested per-block sublists folded into the flat knobs."""
+    if params is None:
+        params = ParameterList("Preconditioner")
+    if isinstance(params, dict):
+        params = ParameterList("Preconditioner", params)
+    params.validate_and_set_defaults(default_prec_params())
+    _apply_nested_block_lists(params)
+    return params
+
+
+def bgs_options(params: ParameterList) -> tuple[dict, dict]:
+    """(build_kw, apply_kw): ``bgs.build``'s and ``bgs.apply``'s keywords
+    of a list from :func:`preconditioner_params`, each block's MG
+    prolongation weight its own.  The serial and the sharded BGS solves
+    both read them here."""
+    build_kw = dict(
+        spp_scheme=params.get("Saddlepoint scheme"),
+        rhomu=bool(params.get("ATS rho/mu Transform")),
+        rhomu_lambda=float(params.get("rho/mu lambda")),
+        uv_precond=params.get("Auv Precond"),
+        ts_precond=params.get("ATS Precond"),
+        spp_precond=params.get("Saddlepoint Precond"),
+        **{kw: _prolongation_weight(params, blk) for kw, blk in (
+            ("spp_prolong_w", "Saddlepoint"), ("uv_prolong_w", "Auv"),
+            ("ts_prolong_w", "ATS"))})
+    apply_kw = dict(
+        nit_spp=params.get("Saddlepoint iterations"),
+        nit_uv=params.get("Auv iterations"),
+        nit_ts=params.get("ATS iterations"),
+        spp_scheme=params.get("Saddlepoint scheme"),
+        permutation=int(params.get("Permutation")),
+        symmetric=params.get("Scheme") == "symmetric Gauss-Seidel",
+        tol_spp=float(params.get("Saddlepoint tolerance")),
+        tol_uv=float(params.get("Auv tolerance")),
+        tol_ts=float(params.get("ATS tolerance")))
+    return build_kw, apply_kw
+
+
 def make_preconditioner(params: ParameterList | dict | None, *,
                         landm: np.ndarray, periodic: bool,
                         grid_shape: tuple[int, int, int],
@@ -108,12 +150,7 @@ def make_preconditioner(params: ParameterList | dict | None, *,
     int_row_provider: optional () -> (coeff, (var,k,j,i), scale) for the
     salinity integral-condition row, evaluated at build time; consumed
     by BGS."""
-    if params is None:
-        params = ParameterList("Preconditioner")
-    if isinstance(params, dict):
-        params = ParameterList("Preconditioner", params)
-    params.validate_and_set_defaults(default_prec_params())
-    _apply_nested_block_lists(params)
+    params = preconditioner_params(params)
     method = params.get("Method")
 
     if method == "None":
@@ -125,26 +162,7 @@ def make_preconditioner(params: ParameterList | dict | None, *,
 
     if method == "BGS":
         from . import bgs
-        build_kw = dict(
-            spp_scheme=params.get("Saddlepoint scheme"),
-            rhomu=bool(params.get("ATS rho/mu Transform")),
-            rhomu_lambda=float(params.get("rho/mu lambda")),
-            uv_precond=params.get("Auv Precond"),
-            ts_precond=params.get("ATS Precond"),
-            spp_precond=params.get("Saddlepoint Precond"),
-            **{kw: _prolongation_weight(params, blk) for kw, blk in (
-                ("spp_prolong_w", "Saddlepoint"), ("uv_prolong_w", "Auv"),
-                ("ts_prolong_w", "ATS"))})
-        apply_kw = dict(
-            nit_spp=params.get("Saddlepoint iterations"),
-            nit_uv=params.get("Auv iterations"),
-            nit_ts=params.get("ATS iterations"),
-            spp_scheme=params.get("Saddlepoint scheme"),
-            permutation=int(params.get("Permutation")),
-            symmetric=params.get("Scheme") == "symmetric Gauss-Seidel",
-            tol_spp=float(params.get("Saddlepoint tolerance")),
-            tol_uv=float(params.get("Auv tolerance")),
-            tol_ts=float(params.get("ATS tolerance")))
+        build_kw, apply_kw = bgs_options(params)
 
         def build(An):
             int_row = (int_row_provider()

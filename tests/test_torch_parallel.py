@@ -7,7 +7,8 @@ once (module fixture); the cases on one rank run in this process, without
 a process group.  The ranks import neither JAX nor the JAX package.
 
 Deep equivalences (Double at 1e-10, Mixed at 1e-8, a Newton step at
-1e-10) are marked slow, as tests/test_parallel.py marks them.
+1e-10) are marked slow, as tests/test_parallel.py marks them; the deep
+solves run on one, four and eight ranks (eight gloo processes).
 """
 
 import os
@@ -465,8 +466,15 @@ def test_ranks_import_no_jax(ranks):
 # deep equivalences (tests/test_parallel.py:111,185,215), slow
 # ---------------------------------------------------------------------------
 
+# the rank grids of the deep solves: tests/test_parallel.py:111-116's
+# (the np in {1, 2, 4, 8} regression of src/tests/CMakeLists.txt:77-87),
+# eight gloo processes on (1, 8), (2, 4) and (4, 2); at (1, 8) a block of
+# the 8x8x4 fixture is one column wide
+DEEP_SHAPES = [(1, 1), (2, 2), (1, 8), (2, 4), (4, 2)]
+
+
 @pytest.mark.slow
-@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("shape", DEEP_SHAPES)
 def test_deep_double_solve(shape):
     """The Double sharded solve at 1e-10 converges on every rank grid,
     with the true residual within 1e-8 (tests/test_parallel.py:111)."""
@@ -479,7 +487,7 @@ def test_deep_double_solve(shape):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("shape", DEEP_SHAPES)
 def test_deep_mixed_solve(shape):
     """The Mixed sharded solve at 1e-8 (tests/test_parallel.py:185): its
     explicit residual below 1e-8 and the true unscaled residual below
