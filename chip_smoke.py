@@ -175,8 +175,19 @@ Phases, each printing its own line:
                 rank) held to (a)'s step within the JAX test's bounds (par
                 1e-5, state rtol 1e-3 atol 1e-6).  (c) The dry run at its
                 own 8x8x3 grid (stage 3 on the 8x8x4 box) on four ranks.
-                The phase's launches of the stencil kernel, the ranks'
-                included, are printed (0)
+                (d) The sharded solve's other methods, ShardedOcean.solve
+                beside Ocean.solve on the same solver parameters: (d1)
+                one NCCL rank at 96x38x12 at the effort state, b = -F,
+                None/Double, None/Mixed, Teko/Double, Teko/Mixed and
+                Columns/Mixed capped at 20 iterations (see METHODS): the
+                same MV and the iterate to 1e-10; (d2) the same five on
+                four gloo ranks on 2x2, per rank MV, relres, seconds,
+                message rounds and gathers per application, held to
+                (d1)'s, no gather; (d3) Amesos and MILU, Double and Mixed,
+                on the masked 8x8x4 grid, on one rank against Ocean.solve
+                and on 2x2, their gathers to rank 0 and bytes gathered per
+                build and per application.  The phase's launches of the
+                stencil kernel, the ranks' included, are printed (0)
 
 The line before the last is the kernels' JSON record: ms, plain_ms and
 bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
@@ -468,6 +479,50 @@ PARALLEL_SWEEPS = {
     "rho/mu under M1/SI": (_ONE, {"rhomu": True}, 1e-10),
     "MG on Auv under M2": (dict(_ONE, permutation=2),
                            {"uv_precond": "MG"}, 1e-10)}
+
+# (d) the sharded solve's methods besides BGS and Columns/Double, as
+# ShardedOcean.solve against Ocean.solve on the same solver parameters:
+# (d1) one NCCL rank and (d2) four gloo ranks on 2x2 at PARALLEL_GRID's
+# effort state, b = -F, each solve capped at METHODS_ITERS iterations;
+# the Double ones at the main phase's 5e-2, the Mixed ones at a tolerance
+# their first refinement sweep meets (so no GMRES-IR tail runs).  The
+# serial Ocean takes "Matvec kernel" "xla": the sharded f32 product is
+# plain PyTorch (so is the JAX package's), and the kernel's summation
+# order would part the two solves' iterates, and count its launches here.
+# (d3) Amesos and MILU, whose factors neither package builds at
+# 96x38x12 in reasonable time and memory (scripts/host_method_limits.py:
+# splu takes minutes and hundreds of millions of nonzeros in L and U,
+# MILU runs out of memory), on the masked 8x8x4 grid (ISLAND).
+# After 20 iterations None is at 5.8e-3, Teko and Columns stop at 0.3636
+# (the serial Ocean.solve likewise, on an H100), so the Mixed solves take
+# 0.5.
+METHODS_ITERS = 20
+METHODS_MIXED_TOL = 0.5
+METHODS = [("None", "Double", SOLVE_TOL),
+           ("None", "Mixed", METHODS_MIXED_TOL),
+           ("Teko", "Double", SOLVE_TOL),
+           ("Teko", "Mixed", METHODS_MIXED_TOL),
+           ("Columns", "Mixed", METHODS_MIXED_TOL)]
+HOST_METHODS = [("Amesos", "Double", 1e-8), ("Amesos", "Mixed", 1e-8),
+                ("MILU", "Double", 1e-3), ("MILU", "Mixed", 1e-3)]
+HOST_METHODS_ITERS = 300
+# (d1) and the one-rank (d3) against Ocean.solve: the same MV, the iterate
+# within METHODS_SAME of its largest entry.  (d2) against (d1): relres
+# within METHODS_RELRES relative (Mixed: at most max(tol, 1.01 x (d1)'s)),
+# the true unscaled residual of the gathered iterate at most twice the
+# relres.  (d3) on four ranks: Amesos' iterate within HOST_SAME relative
+# of one rank's; MILU's true residual (of the row-scaled, deflated system
+# the solve solves, computed apart, as the variants phase takes it) at most
+# twice its tolerance, and its MV within MILU_MV_SLACK of the range that
+# the serial Ocean.solve itself spans on the card and on the CPU: its
+# factor is rank 0's of the gathered tensor, so only the sums' rounding
+# differs, but at 1e-3 on this grid the solve is on a plateau where
+# rounding alone moves it (the serial solve takes 123 MV on an H100 and
+# 88 on the CPU)
+METHODS_SAME = 1e-10
+METHODS_RELRES = 1e-3
+HOST_SAME = 1e-6
+MILU_MV_SLACK = 5
 
 
 def card() -> str:
@@ -933,11 +988,11 @@ def _variant_solve(hopper, o, b, name, prec, cap, card_line, where=""):
                              f"{o.solve_relres:.3e}, {launches} launches")
 
 
-def _small_ocean(solver_params: dict):
-    """The masked 8x8x4 grid on the card, with F and the Jacobian."""
+def _small_ocean(solver_params: dict, device: str = "cuda"):
+    """The masked 8x8x4 grid on device, with F and the Jacobian."""
     from iemic_tpu_torch.models.ocean import Ocean
     s = Ocean({"THCM": dict(ISLAND)}, solver_params=solver_params,
-              data_dir=os.path.join(REPO, "data"), device="cuda")
+              data_dir=os.path.join(REPO, "data"), device=device)
     s.compute_rhs()
     s.compute_jacobian()
     return s
@@ -2808,15 +2863,196 @@ def _parallel_sweeps(out, k0: int, sweeps: dict, card_line: str) -> None:
                                          f"or gathered in its build")
 
 
+def _methods_solver(method: str, precision: str, tol: float,
+                    iters: int = METHODS_ITERS) -> dict:
+    return {"Preconditioning": method, "Precision": precision,
+            "FGMRES tolerance": tol, "FGMRES iterations": iters,
+            "Matvec kernel": "xla"}
+
+
+def _methods_one_rank(thcm: dict, cases, iters: int, card_line: str,
+                      tag: str) -> tuple[dict, object]:
+    """(d1) and the one-rank half of (d3): on one NCCL rank, for each
+    (method, precision, tol) of cases, ShardedOcean.solve of J x = -F at
+    the model's starting state against Ocean.solve on the same solver
+    parameters: the same MV and the iterate within METHODS_SAME.  Returns
+    each case's MV, relres and seconds, and the serial model (its F and
+    Jacobian, for the true residuals of (d2))."""
+    import torch.distributed as dist
+    from iemic_tpu_torch.models.ocean import Ocean
+    from iemic_tpu_torch.parallel import Domain, ShardedOcean
+    from iemic_tpu_torch.parallel.methods import format_stats
+    from iemic_tpu_torch.parallel.multihost import initialize_environment
+
+    data = os.path.join(REPO, "data")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_environment("nccl", init_method=f"file://{tmp}/store",
+                               world_size=1, rank=0, timeout_s=300.0)
+        try:
+            dom = Domain(*(thcm[f"Global Grid-Size {k}"] for k in "nml"),
+                         periodic=thcm["Periodic"], device="cuda")
+            o = Ocean({"THCM": dict(thcm)}, data_dir=data,
+                      device=dom.device)
+            o.compute_rhs()
+            o.compute_jacobian()
+            for method, precision, tol in cases:
+                solver = _methods_solver(method, precision, tol, iters)
+                _set_solver(o, {}, **solver)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                z = o.solve(-o.rhs)
+                torch.cuda.synchronize()
+                ssec = time.perf_counter() - t0
+                so = ShardedOcean(o, dom)
+                so.compute_rhs()
+                so.compute_jacobian()
+                t0 = time.perf_counter()
+                zs = so.solve(-so.rhs)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                gap = float((zs - z).abs().max() / z.abs().max())
+                stats = so._solve.preconditioner().stats()
+                print(f"parallel {tag} {method}/{precision} (tol {tol:g}, "
+                      f"{iters} iterations) on one rank over "
+                      f"{dom.backend}: {so.solve_iters} MV "
+                      f"({so.solve_sweeps} refinement sweeps, "
+                      f"{so.solve_outer} tail iterations), relres "
+                      f"{so.solve_relres:.3e}, {sec:.3f} s; Ocean.solve "
+                      f"{o.solve_iters} MV, relres {o.solve_relres:.3e}, "
+                      f"{ssec:.3f} s; iterate gap {gap:.3e} (limit "
+                      f"{METHODS_SAME:g}); {format_stats(stats)} "
+                      f"[{card_line}]", flush=True)
+                if not (so.solve_iters == o.solve_iters
+                        and gap <= METHODS_SAME):
+                    raise AssertionError(
+                        f"parallel {tag} {method}/{precision}: "
+                        f"ShardedOcean.solve {so.solve_iters} MV, gap "
+                        f"{gap:.3e} to Ocean.solve's {o.solve_iters} MV")
+                out[method, precision] = {"mv": so.solve_iters,
+                                          "relres": so.solve_relres,
+                                          "seconds": sec,
+                                          "z": zs.cpu().numpy()}
+                del so
+        finally:
+            dist.destroy_process_group()
+    return out, o
+
+
+def _methods_four_ranks(rows: list, one: dict, o, cases, tag: str,
+                        card_line: str) -> None:
+    """(d2) and the four-rank half of (d3): each rank's MV, relres,
+    seconds, message rounds and gathers per application, the bytes
+    gathered, against the one-rank solves one; o is the serial model of
+    the one-rank solves (F and J, for the true residuals)."""
+    from iemic_tpu_torch.parallel.methods import format_stats
+    from iemic_tpu_torch.solvers.factory import HOST_METHODS as HOST
+    for (method, precision, tol), per_rank in zip(cases, rows):
+        ref = one[method, precision]
+        z = torch.as_tensor(per_rank[0]["z"], device=o.jac.device)
+        true = float(torch.linalg.norm(o.apply_matrix(z) + o.rhs)
+                     / torch.linalg.norm(o.rhs))
+        relres = per_rank[0]["relres"]
+        for rank, r in enumerate(per_rank):
+            print(f"parallel {tag} {method}/{precision} rank {rank} of 2x2 "
+                  f"over gloo: {r['mv']} MV (one rank {ref['mv']}; "
+                  f"{r['sweeps']} refinement sweeps, {r['outer']} tail "
+                  f"iterations), relres "
+                  f"{r['relres']:.3e} (one rank {ref['relres']:.3e}), "
+                  f"{r['seconds']:.3f} s, {r['gathers']} gathers in the "
+                  f"solve; {format_stats(r['prec'])} [{card_line}]",
+                  flush=True)
+        z1 = ref["z"]
+        xgap = float(np.abs(per_rank[0]["z"] - z1).max() / np.abs(z1).max())
+        scaled = _true_relres(o, z, -o.rhs)
+        print(f"parallel {tag} {method}/{precision} on 2x2: true relres of "
+              f"the gathered iterate {true:.3e} unscaled, {scaled:.3e} of "
+              f"the row-scaled, deflated system (the solve's relres "
+              f"{relres:.3e}), iterate against one rank's {xgap:.3e}",
+              flush=True)
+        same_mv = all(r["mv"] == per_rank[0]["mv"] for r in per_rank)
+        if method in HOST:
+            counted = all(r["gathers"] == 1 + r["prec"]["applications"]
+                          and r["prec"]["rounds_per_apply"] == 2
+                          for r in per_rank)
+            if method == "Amesos":
+                ok = per_rank[0]["mv"] == ref["mv"] and xgap <= HOST_SAME
+            else:
+                spread = (ref["mv"], ref["cpu_mv"])
+                ok = (min(spread) - MILU_MV_SLACK <= per_rank[0]["mv"]
+                      <= max(spread) + MILU_MV_SLACK and scaled <= 2 * tol)
+            ok = ok and relres <= tol
+        else:
+            counted = all(r["gathers"] == r["prec"]["build_gathers"] == 0
+                          for r in per_rank)
+            capped = ref["mv"] == METHODS_ITERS
+            ok = ((not capped or per_rank[0]["mv"] == ref["mv"])
+                  and abs(relres - ref["relres"])
+                  <= METHODS_RELRES * ref["relres"]
+                  and true <= 2 * relres
+                  and (precision != "Mixed"
+                       or relres <= max(tol, 1.01 * ref["relres"])))
+        if not (same_mv and counted and ok):
+            raise AssertionError(
+                f"parallel {tag} {method}/{precision} on 2x2: MV "
+                f"{[r['mv'] for r in per_rank]} (one rank {ref['mv']}), "
+                f"relres {relres:.3e} (one rank {ref['relres']:.3e}), true "
+                f"{true:.3e}, gathers {[r['gathers'] for r in per_rank]}")
+
+
+def _parallel_methods(multichip, card_line: str) -> list:
+    """(d): the sharded solve's other methods.  (d1) METHODS on one NCCL
+    rank at PARALLEL_GRID's effort state against Ocean.solve; (d3) on one
+    rank the same for HOST_METHODS on ISLAND; then one spawn of four gloo
+    ranks on 2x2 runs (d2) METHODS and (d3) HOST_METHODS, held to the
+    one-rank solves.  Returns the ranks' kernel launches."""
+    island = dict(ISLAND, Periodic=False)
+    t0 = time.perf_counter()
+    one, o = _methods_one_rank(GLOBAL_THCM, METHODS, METHODS_ITERS,
+                               card_line, "(d1)")
+    host, small = _methods_one_rank(island, HOST_METHODS,
+                                    HOST_METHODS_ITERS, card_line, "(d3)")
+    for method, precision, tol in HOST_METHODS:
+        cpu = _small_ocean(_methods_solver(method, precision, tol,
+                                           HOST_METHODS_ITERS), "cpu")
+        cpu.solve(-cpu.rhs)
+        host[method, precision]["cpu_mv"] = cpu.solve_iters
+        print(f"parallel (d3) {method}/{precision} serial Ocean.solve on "
+              f"the CPU: {cpu.solve_iters} MV, relres "
+              f"{cpu.solve_relres:.3e}", flush=True)
+    print(f"parallel (d1) and (d3) on one rank {time.perf_counter() - t0:.1f}"
+          f" s [{card_line}]", flush=True)
+    t0 = time.perf_counter()
+    jobs = [("model_solve", dict(
+        thcm=GLOBAL_THCM, shape=(2, 2), x=None,
+        solver=_methods_solver(m, p, tol))) for m, p, tol in METHODS]
+    jobs += [("model_solve", dict(
+        thcm=island, shape=(2, 2), x=None,
+        solver=_methods_solver(m, p, tol, HOST_METHODS_ITERS)))
+        for m, p, tol in HOST_METHODS]
+    jobs.append(("launches", {}))
+    out = multichip.run_ranks(PARALLEL_RANKS, jobs, device="cuda",
+                              backend="gloo", timeout_s=300.0)
+    print(f"parallel (d2) and (d3) on {PARALLEL_RANKS} gloo ranks "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]", flush=True)
+    rows = [[r[k] for r in out] for k in range(len(jobs) - 1)]
+    k = len(METHODS)
+    _methods_four_ranks(rows[:k], one, o, METHODS, "(d2)", card_line)
+    _methods_four_ranks(rows[k:], host, small, HOST_METHODS, "(d3)",
+                        card_line)
+    return [r[-1] for r in out]
+
+
 def phase_parallel(hopper, card_line: str) -> dict:
     """(a) one rank over NCCL; (b) PARALLEL_RANKS ranks on the one card
     over gloo: the sharded matvec and the partitioned assembly on each of
     PARALLEL_SHAPES against the serial ones, timed per rank, then the dry
     run's three stages at PARALLEL_GRID, its Newton update and its
-    continuation step held to (a)'s; (c) the dry run at its own grid.  Returns the kernel launches of the phase, the ranks'
-    included, by entry point: none, as the sharded path contracts its
-    windows in plain PyTorch (the JAX package's reaches no Pallas
-    kernel)."""
+    continuation step held to (a)'s; (c) the dry run at its own grid; (d)
+    the sharded solve's other methods.  Returns the kernel launches of
+    the phase, the ranks' included, by entry point: none, as the sharded
+    path contracts its windows in plain PyTorch (the JAX package's
+    reaches no Pallas kernel)."""
     from iemic_tpu_torch.main import multichip
     from iemic_tpu_torch.parallel import decomp2d
 
@@ -2933,9 +3169,14 @@ def phase_parallel(hopper, card_line: str) -> dict:
     small = multichip.dryrun_multichip(PARALLEL_RANKS, device="cuda")
     print(f"parallel (c) {time.perf_counter() - t0:.1f} s [{card_line}]",
           flush=True)
+
+    t0 = time.perf_counter()
+    methods = _parallel_methods(multichip, card_line)
+    print(f"parallel (d) {time.perf_counter() - t0:.1f} s [{card_line}]",
+          flush=True)
     launches = dict(hopper.LAUNCHES_BY_ENTRY)
-    for r in ranks + small:
-        for entry, n in r["launches"].items():
+    for counts in [r["launches"] for r in ranks + small] + methods:
+        for entry, n in counts.items():
             launches[entry] += n
     return launches
 

@@ -308,21 +308,59 @@ def job_solve(device, thcm, shape, x, tol, maxiter, landm=None,
 def job_model_solve(device, thcm, shape, solver, x, landm=None,
                     group=None):
     """ShardedOcean.solve of J z = -F at the state x, on the ocean of thcm
-    and the solver parameters solver: the gathered z, MV, relres and
-    seconds, and the stats of the solve's BGS preconditioner."""
+    and the solver parameters solver, with the domain's gather refusing
+    in the solve, and its gather to one rank too unless the method is a
+    host one (Amesos, MILU): the gathered z, MV, relres, seconds, Mixed
+    refinement sweeps and tail iterations, and the gathers of the solve,
+    the stats of the solve's preconditioner, and of its BGS
+    preconditioner (None for another method)."""
     from ..parallel import ShardedOcean
+    from ..solvers.factory import HOST_METHODS
     dom = _ocean_domain(device, thcm, shape, group)
     model = ShardedOcean(_ocean(dom.device, thcm, landm, state=x,
                                 solver=solver), dom)
     model.compute_rhs()
     model.compute_jacobian()
+    gathers = dom.gathers
+    dom.gather = _refuse_gather
+    if model._method not in HOST_METHODS:
+        dom.gather_to = _refuse_gather
     t0 = time.perf_counter()
     z = model.solve(-model.rhs)
     _sync(dom.device)
+    seconds = time.perf_counter() - t0
+    gathers = dom.gathers - gathers
+    del dom.gather
+    dom.__dict__.pop("gather_to", None)
     return {"z": dom.gather(z).cpu().numpy(), "mv": model.solve_iters,
-            "relres": model.solve_relres,
-            "seconds": time.perf_counter() - t0,
+            "relres": model.solve_relres, "seconds": seconds,
+            "sweeps": model.solve_sweeps, "outer": model.solve_outer,
+            "gathers": gathers,
+            "prec": model._solve.preconditioner().stats(),
             "bgs": _bgs_stats(model._solve)}
+
+
+def job_prec(device, thcm, shape, An, r, method, params=None, group=None):
+    """The sharded solve's preconditioner of method
+    (``parallel.methods``) built on this rank's block of the whole
+    stencil tensor An (whose integral row is taken unscaled) and applied
+    to its block of r, with the domain's gather refusing, and its gather
+    to one rank too unless the method is a host one: the gathered z and
+    the preconditioner's stats."""
+    from ..parallel.methods import make_preconditioner
+    from ..solvers.factory import HOST_METHODS
+    dom = _ocean_domain(device, thcm, shape, group)
+    ocean = _ocean(dom.device, thcm)
+    An_l = dom.shard_stencil(torch.as_tensor(An, device=dom.device))
+    r_l = dom.shard_state(torch.as_tensor(r, device=dom.device))
+    dom.gather = _refuse_gather
+    if method not in HOST_METHODS:
+        dom.gather_to = _refuse_gather
+    prec = make_preconditioner(ocean, dom, method, params)(An_l, 1.0)
+    z = prec(r_l)
+    del dom.gather
+    dom.__dict__.pop("gather_to", None)
+    return {"z": dom.gather(z).cpu().numpy(), "stats": prec.stats()}
 
 
 def job_newton(device, thcm, shape, x, tol, maxiter, landm=None):
@@ -344,9 +382,10 @@ def _refuse_gather(*args, **kw):
 
 def _bgs_stats(solve) -> dict | None:
     """The stats of a sharded solve's last BGS preconditioner (None for
-    the Columns solve and before the first solve)."""
-    prec = getattr(solve, "preconditioner", lambda: None)()
-    return None if prec is None else prec.stats()
+    another method and before the first solve)."""
+    from ..parallel.bgs import PartitionedBGS
+    prec = solve.preconditioner()
+    return prec.stats() if isinstance(prec, PartitionedBGS) else None
 
 
 def job_assembly(device, thcm, shape, x, landm=None, gathered=True,
@@ -665,6 +704,7 @@ def job_dryrun(device, grid=None):
 
 JOBS = {"halo": job_halo, "stencil": job_stencil, "ops": job_ops,
         "solve": job_solve, "model_solve": job_model_solve,
+        "prec": job_prec,
         "newton": job_newton, "gate": job_gate,
         "bgs": job_bgs,
         "assembly": job_assembly, "columns": job_columns,

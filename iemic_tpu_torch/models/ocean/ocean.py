@@ -535,7 +535,7 @@ class Ocean:
             int_row_provider=_int_row_provider)
         # MILU and Amesos factors live on the host: their solve is the
         # host-driven f64 FGMRES, whatever "Precision" says
-        self._prec_host_only = prec_params["Method"] in ("MILU", "Amesos")
+        self._prec_host_only = prec_params["Method"] in sfactory.HOST_METHODS
 
         choice = sp.get("Matvec kernel", "auto")
         if choice not in ("auto", "pallas", "xla"):

@@ -10,8 +10,10 @@ with ``torch.distributed`` point-to-point messages (periodic wraparound in
 x included, reference TRIOS_Domain.H:337-340).  The residual and the
 Jacobian are assembled on each block extended by a 2-deep halo
 (``assembly``), the block Gauss-Seidel preconditioner is factored and
-applied on each block (``bgs``), and ``ShardedOcean`` runs a continuation
-on the split state.
+applied on each block (``bgs``), every other method of the solver factory
+has its sharded preconditioner (``methods``: Amesos and MILU on the
+matrix gathered to rank 0), and ``ShardedOcean`` runs a continuation on
+the split state.
 """
 
 from .domain import Domain, decomp2d

@@ -17,8 +17,11 @@ Port of ``iemic_tpu/parallel/domain.py``, the analog of
 Where the JAX package places global arrays on a device mesh and lets
 GSPMD partition jitted code, each rank here holds its own block on its
 own device, and every exchange is an explicit collective: the halo swap
-of :mod:`.halo`, the sum over ranks (``allreduce``) and the gather of a
-sharded tensor (``gather``).  Torch has no GSPMD, so the JAX package's
+of :mod:`.halo`, the sum over ranks (``allreduce``), the gather of a
+sharded tensor on every rank (``gather``), and its gather to one rank and
+scatter back from it (``gather_to``, ``scatter_from``: the host-side
+preconditioners of :mod:`.methods`, whose factors need the whole
+matrix).  Torch has no GSPMD, so the JAX package's
 ``constrain_state`` (a sharding constraint inside jitted code) has no
 counterpart.
 
@@ -158,9 +161,11 @@ class Domain:
                      if rx > 0 or wrap else None)
         self.east = (self.grid[ry][(rx + 1) % px]
                      if rx < px - 1 or wrap else None)
-        # bytes this rank has sent in halo exchanges, and its gathers
+        # bytes this rank has sent in halo exchanges, its gathers, and
+        # the bytes of the global tensors gathered to one rank
         self.sent_bytes = 0
         self.gathers = 0
+        self.gathered_bytes = 0
 
     def _global(self, group_rank: int) -> int:
         if self.group is None or self.size == 1:
@@ -255,6 +260,28 @@ class Domain:
             return float(torch.linalg.norm(v))
         return float(torch.sqrt(self.allreduce(torch.dot(v, v)[None])[0]))
 
+    def _comm(self, x: torch.Tensor) -> torch.Tensor:
+        """x contiguous on the device the backend takes."""
+        comm = torch.device("cpu") if self.staged else self.device
+        return x.to(comm).contiguous()
+
+    def _whole(self, blocks: list) -> torch.Tensor:
+        """The global (..., m, n) tensor of the ranks' blocks, in the
+        order of their ranks in the group."""
+        ml, nl = self.local_shape
+        x = blocks[0]
+        out = torch.empty(x.shape[:-2] + (self.m, self.n), dtype=x.dtype,
+                          device=x.device)
+        for y, row in enumerate(self.grid):
+            for xx, r in enumerate(row):
+                out[..., y * ml:(y + 1) * ml, xx * nl:(xx + 1) * nl] = \
+                    blocks[self._group_rank(r)]
+        return out
+
+    def _group_rank(self, r: int) -> int:
+        return r if self.group is None else dist.get_group_rank(self.group,
+                                                                 r)
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The global (..., m, n) tensor from every rank's (..., ml, nl)
         block, on every rank (the reference's Utils::AllGather,
@@ -262,19 +289,46 @@ class Domain:
         self.gathers += 1
         if self.size == 1:
             return x.clone()
-        comm = torch.device("cpu") if self.staged else self.device
-        x = x.to(comm).contiguous()
+        x = self._comm(x)
         blocks = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(blocks, x, group=self.group)
-        ml, nl = self.local_shape
-        out = torch.empty(x.shape[:-2] + (self.m, self.n), dtype=x.dtype,
-                          device=comm)
-        for y, row in enumerate(self.grid):
-            for xx, r in enumerate(row):
-                g = r if self.group is None else \
-                    dist.get_group_rank(self.group, r)
-                out[..., y * ml:(y + 1) * ml, xx * nl:(xx + 1) * nl] = \
-                    blocks[g]
+        return self._whole(blocks).to(self.device)
+
+    def gather_to(self, x: torch.Tensor, root: int = 0):
+        """The global (..., m, n) tensor from every rank's (..., ml, nl)
+        block, on the rank root of the group only (None on the others):
+        one ``dist.gather``, host-staged under gloo as :meth:`gather`.
+        Counted in ``gathers``, and the global tensor's bytes in
+        ``gathered_bytes``, on every rank."""
+        self.gathers += 1
+        self.gathered_bytes += x.numel() * x.element_size() * self.size
+        if self.size == 1:
+            return x.clone()
+        x = self._comm(x)
+        blocks = [torch.empty_like(x) for _ in range(self.size)] \
+            if self.rank == root else None
+        dist.gather(x, blocks, dst=self._global(root), group=self.group)
+        return None if blocks is None else self._whole(blocks).to(self.device)
+
+    def scatter_from(self, x, like: torch.Tensor, root: int = 0):
+        """This rank's block of the global (..., m, n) tensor x that the
+        rank root of the group holds (x is not read on the others), shaped
+        and typed as this rank's block like: one ``dist.scatter``,
+        host-staged under gloo."""
+        if self.size == 1:
+            return self._block(x).to(like.dtype)
+        out = self._comm(torch.empty_like(like))
+        blocks = None
+        if self.rank == root:
+            ml, nl = self.local_shape
+            x = self._comm(x.to(like.dtype))
+            blocks = [None] * self.size
+            for y, row in enumerate(self.grid):
+                for xx, r in enumerate(row):
+                    blocks[self._group_rank(r)] = x[
+                        ..., y * ml:(y + 1) * ml,
+                        xx * nl:(xx + 1) * nl].contiguous()
+        dist.scatter(out, blocks, src=self._global(root), group=self.group)
         return out.to(self.device)
 
     def owns(self, j: int, i: int) -> bool:

@@ -26,13 +26,14 @@ halos, and the JAX package's sharded path reaches no Pallas kernel.
 Torch has no GSPMD.  Where the JAX package jits the residual and the
 Jacobian with sharded inputs and lets XLA partition them, every rank here
 evaluates the serial assembly on its block extended by a 2-deep halo
-(:mod:`.assembly`, ``halo_extend`` at depth 2).  The column-block
-preconditioner is local to each rank, since z is never partitioned; the
-block-GS factors are built and the sweep applied on each rank's block
-(:mod:`.bgs`), with no gather of the stencil tensor.  The Krylov solve is
-distributed the same way: each rank holds its block of every Krylov
-vector, the matvec exchanges halos, and every inner product and norm is a
-sum over ranks (``Domain.allreduce``).
+(:mod:`.assembly`, ``halo_extend`` at depth 2).  The sharded solve runs
+every method of the factory (:mod:`.methods`): None, Columns, BGS and
+Teko are built and applied on each rank's block with no gather of the
+stencil tensor, and only Amesos and MILU, whose factors need the whole
+matrix, gather it to rank 0.  The Krylov solve is distributed the same
+way: each rank holds its block of every Krylov vector, the matvec
+exchanges halos, and every inner product and norm is a sum over ranks
+(``Domain.allreduce``).
 """
 
 from __future__ import annotations
@@ -55,11 +56,12 @@ class ShardedSolve(NamedTuple):
     ``Ocean.solve``: FGMRES iterations for Double; for Mixed the f32
     inner iterations of the refinement sweeps plus those of the GMRES-IR
     tail.  ``outer`` counts the tail's f64 iterations apart (0 without a
-    tail)."""
+    tail), ``sweeps`` the Mixed refinement sweeps (0 for Double)."""
     x: torch.Tensor       # this rank's block of the solution
     mv: int
     relres: float         # of the (row-scaled, deflated) system solved
     outer: int
+    sweeps: int = 0
 
 
 def _swap(domain, first: torch.Tensor, last: torch.Tensor, down, up):
@@ -236,69 +238,60 @@ def _row_scale(ocean, domain, An_l):
     return torch.as_tensor(R, dtype=An_l.dtype, device=An_l.device), rint
 
 
-def check_method(preconditioner: str, precision: str) -> None:
-    """Raise ValueError, naming it, for a method or combination of the
-    solver parameters that the sharded solve does not run: it runs BGS
-    (Double or Mixed) and Columns (Double)."""
-    if preconditioner not in ("BGS", "Columns"):
-        raise ValueError(f"the sharded solve does not run Preconditioning "
-                         f"{preconditioner!r}: it runs BGS and Columns")
-    if preconditioner == "Columns" and precision == "Mixed":
-        raise ValueError("the sharded solve does not run Preconditioning "
-                         "'Columns' with Precision 'Mixed': the sharded "
-                         "Columns solve takes Precision Double")
-
-
 def make_sharded_solve(ocean, domain, *, precision: str = "Double",
-                       preconditioner: str = "BGS",
+                       preconditioner: str = "BGS", params=None,
                        apply_opts: dict | None = None,
                        build_opts: dict | None = None,
                        scale_double: bool = False,
                        inner_tol: float = 1e-4, stall_limit: int = 8,
                        tail_iters: int = 60, nullq="ocean"):
-    """Sharded BGS-preconditioned FGMRES solve (the full solve path of
-    §3.1 over the ranks): the Krylov matvec exchanges halos, the block-GS
-    preconditioner is factored and applied on each rank's block
-    (:class:`.bgs.PartitionedBGS`; no gather), and the pressure null modes
-    are deflated globally: ``Q^T v`` is a sum over the ranks of their
-    rows.  nullq is this rank's rows of the modes' basis
-    (:func:`sharded_deflator`) or None; "ocean" takes the modes of the
-    ocean's Jacobian where it has one, as the JAX package does.
+    """The sharded preconditioned FGMRES solve (the full solve path of
+    §3.1 over the ranks), ``Ocean.solve``'s on the ranks: the Krylov
+    matvec exchanges halos, the preconditioner of the method
+    ``preconditioner`` (any the factory builds: None, Columns, BGS, Teko,
+    Amesos, MILU; :func:`.methods.make_preconditioner`, with the
+    Preconditioner list params, the BGS factors ``bgs.build``'s with
+    build_opts over the JAX package's sharded solve's build, MG on ATS,
+    and its sweep ``bgs.apply``'s with apply_opts) is built on each
+    rank's block, and the pressure null modes are deflated globally in
+    the operator and in the preconditioner's output: ``Q^T v`` is a sum
+    over the ranks of their rows.  nullq is this rank's rows of the
+    modes' basis (:func:`sharded_deflator`) or None; "ocean" takes the
+    modes of the ocean's Jacobian where it has one, as the JAX package
+    does.  A method the factory does not know raises its ValueError here,
+    before any build.
 
-    preconditioner="Columns" is the column-block preconditioner
-    (``solvers.preconditioner``), local to each rank since z is never
-    partitioned.  Its solve is ``Ocean._solve_operator``'s with Columns
-    and Double: THCM row scaling where the ocean asks for it (the averaged
-    centre block a sum over the ranks) and the deflation above; Double
-    only.  Any other method, and Columns with Mixed, raise ValueError
-    naming it (:func:`check_method`).
+    Three solves take any of the preconditioners, as ``Ocean`` has them:
+    Double (``fgmres_flat``, all f64), Mixed (below) and, for Amesos and
+    MILU whatever precision says, Host (``fgmres_host``, modified
+    Gram-Schmidt, as ``Ocean._solve_host_prec``).  The f64 systems are
+    THCM-row-scaled where scale_double and the ocean ask for it (as
+    ``Ocean.solve`` solves them; the dry run's Double solve is the JAX
+    package's, unscaled), the Mixed one always where the ocean scales.
+    "Mixed" solves it with f32 Krylov operators (matvec and the factors
+    built in f64 and cast to f32) inside f64 Arnoldi: host-driven f64
+    iterative-refinement sweeps (at most ``Ocean``'s MIXED_SWEEPS, each
+    an inner solve to ``inner_tol`` that gives up after ``stall_limit``
+    stalled iterations), then a GMRES-IR tail (an outer f64 FGMRES of at
+    most tail_iters iterations preconditioned by inner solves at 1e-2)
+    where the sweeps stop short.  The defaults are the dry run's (the JAX
+    package's sharded solve's); ``ShardedOcean`` passes ``Ocean.solve``'s.
 
     Returns ``solve(An_l, b_l, tol, maxiter) -> ShardedSolve`` — the
     multi-rank equivalent of Ocean.solve, for the np in {1, 2, 4, 8}
     equivalence regression (reference src/tests/CMakeLists.txt:77-87).
-    The BGS solve keeps its factors while the solves take the same
-    tensor, as Ocean keeps its own; ``solve.preconditioner()`` is the
-    PartitionedBGS of the last tensor (None before the first solve).
-
-    The BGS factors are ``bgs.build``'s with build_opts over the JAX
-    package's sharded solve's build (MG on ATS); apply_opts are the
-    sweep's keywords (``bgs.apply``'s).  precision="Double" is the all-f64
-    path, on the THCM-row-scaled system where scale_double and the ocean
-    ask for it (as ``Ocean.solve`` solves it; the dry run's Double solve
-    is the JAX package's, unscaled).  "Mixed" solves the THCM-row-scaled
-    system with f32 Krylov operators (matvec and sweep) inside f64
-    Arnoldi: host-driven f64 iterative-refinement sweeps (at most
-    ``Ocean``'s MIXED_SWEEPS, each an inner solve to ``inner_tol`` that
-    gives up after ``stall_limit`` stalled iterations), then a GMRES-IR
-    tail (an outer f64 FGMRES of at most tail_iters iterations
-    preconditioned by inner solves at 1e-2) where the sweeps stop short.  The defaults are the
-    dry run's (the JAX package's sharded solve's); ``ShardedOcean`` passes
-    ``Ocean.solve``'s.
+    The solve keeps its factors while the solves take the same tensor,
+    as Ocean keeps its own; ``solve.preconditioner()`` is the
+    preconditioner of the last tensor (None before the first solve).
     """
-    from .bgs import PartitionedBGS, check_branches, int_row_of
+    from ..solvers.factory import HOST_METHODS
+    from .methods import make_preconditioner
     _check_device(ocean, domain)
-    check_method(preconditioner, precision)
-    apply_kw = dict(apply_opts or {})
+    make_prec = make_preconditioner(ocean, domain, preconditioner, params,
+                                    apply_opts=apply_opts,
+                                    build_opts=build_opts)
+    host = preconditioner in HOST_METHODS
+    mixed = precision == "Mixed" and not host
     cfg = ocean.cfg
     ml, nl = domain.local_shape
     shape = (6, cfg.l, ml, nl)
@@ -311,69 +304,57 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
             nullq = domain.shard_state(
                 q.T.reshape(-1, 6, cfg.l, cfg.m, cfg.n)) \
                 .reshape(q.shape[1], -1).T.contiguous()
+    nullq32 = None if nullq is None else nullq.to(F32)
 
-    def proj(v, Q):
+    def proj(v, Q=nullq):
         return v if Q is None else v - Q @ domain.allreduce(Q.T @ v)
 
-    if preconditioner == "Columns":
-        return _columns_solve(ocean, domain, matvec, proj, nullq, shape)
-    check_branches(apply_kw)
     built = {}
 
-    def factored(An_l, prep):
-        """prep(An_l) = (the operator's tensors, the preconditioner),
-        kept while the solves take the same tensor."""
+    def system(An_l):
+        """The (row-scaled) block, its f32 copy for Mixed, the row scale
+        (None unscaled), the integral row's scale and the preconditioner
+        of the block, kept while the solves take the same tensor."""
         if built.get("An") is not An_l:
             built.clear()
-            ops, prec = prep(An_l)
-            built.update(An=An_l, ops=ops, prec=prec)
-        return built["ops"], built["prec"]
+            An_s, R_l, rint = An_l, None, 1.0
+            if (mixed or scale_double) and cfg.scaling == "THCM":
+                R_l, rint = _row_scale(ocean, domain, An_l)
+                An_s = An_l * R_l[None, :, None]
+            An32 = An_s.to(F32) if mixed else None
+            prec = make_prec(An_s, rint, F32 if mixed else None,
+                             held=(An_s,) if An32 is None else (An_s, An32))
+            built.update(An=An_l, system=(An_s, An32, R_l, rint), prec=prec)
+        return built["system"], built["prec"]
 
-    def scaled(An_l, scale: bool):
-        """The block row-scaled where scale and the ocean ask for it, its
-        row scale (None unscaled) and the integral row's scale."""
-        if not (scale and cfg.scaling == "THCM"):
-            return An_l, None, 1.0
-        R_l, rint = _row_scale(ocean, domain, An_l)
-        return An_l * R_l[None, :, None], R_l, rint
-
-    def preconditioner_of(An_s, rint, dtype=None, held=()):
-        return PartitionedBGS(An_s, ocean.landm, domain,
-                              int_row=int_row_of(ocean, rint * cfg.int_sign),
-                              dtype=dtype, apply_opts=apply_kw,
-                              build_opts=build_opts, held=held)
-
-    def prep_double(An_l):
-        """The (row-scaled) block, its row scale, the integral row's scale
-        and the f64 sweep of the block."""
-        An_s, R_l, rint = scaled(An_l, scale_double)
-        return (An_s, R_l, rint), preconditioner_of(An_s, rint,
-                                                    held=(An_s,))
-
-    def solve_double(An_l, b_l, tol, maxiter):
-        (An_s, R_l, rint), sweep = factored(An_l, prep_double)
+    def prepared(An_l, b_l):
+        """The system, its preconditioner, the f64 operator and the
+        deflated, row-scaled right-hand side."""
+        (An_s, An32, R_l, rint), prec = system(An_l)
         if R_l is not None:
             b_l = b_l * R_l
 
-        def mv(v):
-            return proj(matvec(An_s, v.reshape(shape), rint).reshape(-1),
-                        nullq)
+        def mv64(v):
+            return proj(matvec(An_s, v.reshape(shape), rint).reshape(-1))
 
-        def pc(v):
-            return proj(sweep(v.reshape(shape)).reshape(-1), nullq)
+        return (An32, rint), prec, mv64, proj(b_l.reshape(-1))
 
-        flat_b = proj(b_l.reshape(-1), nullq)
-        res = fgmres_flat(mv, pc, flat_b, torch.zeros_like(flat_b),
+    def pc64(prec):
+        return lambda v: proj(prec(v.reshape(shape)).reshape(-1))
+
+    def solve_double(An_l, b_l, tol, maxiter):
+        _, prec, mv64, flat_b = prepared(An_l, b_l)
+        res = fgmres_flat(mv64, pc64(prec), flat_b, torch.zeros_like(flat_b),
                           float(tol), maxiter, reduce=domain.reduce)
-        return ShardedSolve(proj(res.x, nullq).reshape(shape), res.iters,
+        return ShardedSolve(proj(res.x).reshape(shape), res.iters,
                             res.relres, 0)
 
-    def last():
-        return built.get("prec")
-
-    if precision != "Mixed":
-        solve_double.preconditioner = last
-        return solve_double
+    def solve_host(An_l, b_l, tol, maxiter):
+        """Ocean._solve_host_prec's f64 FGMRES (modified Gram-Schmidt)."""
+        _, prec, mv64, flat_b = prepared(An_l, b_l)
+        x, res = fgmres_host(mv64, flat_b, prec=pc64(prec), tol=float(tol),
+                             maxiter=maxiter, reduce=domain.reduce)
+        return ShardedSolve(proj(x).reshape(shape), res.iters, res.relres, 0)
 
     # ---- Mixed: host-driven f64 iterative refinement ------------------
     # The sharded twin of Ocean._solve_mixed_host + _gmres_ir_host: each
@@ -384,17 +365,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
     # row-scaled system (R J) z = R b is solved, like the production path
     # (scaling.py THCM row scaling, Ocean.C:1206-1214): the raw Jacobian's
     # rows span many orders, which f32 would lose.
-    nullq32 = None if nullq is None else nullq.to(F32)
-
-    def prep_mixed(An_l):
-        """The row-scaled block, its f32 copy, the f32 sweep of it, the
-        row scale and the integral row's scale."""
-        An_s, R_l, rint = scaled(An_l, True)
-        An32 = An_s.to(F32)
-        return (An_s, An32, R_l, rint), preconditioner_of(
-            An_s, rint, dtype=F32, held=(An_s, An32))
-
-    def inner(An32, sweep32, r, tol, rint, maxiter):
+    def inner(An32, prec32, r, tol, rint, maxiter):
         """One f32-operator Krylov solve with f64 Arnoldi of the
         normalized residual r."""
         def mv_h(v):
@@ -402,36 +373,30 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
             return proj(y, nullq32).to(r.dtype)
 
         def pc_h(v):
-            z = sweep32(v.to(F32).reshape(shape))
+            z = prec32(v.to(F32).reshape(shape))
             return proj(z.reshape(-1), nullq32).to(r.dtype)
 
         # stall_limit: the f32 inner solve meets its inexact-matvec noise
-        # floor after O(1) iterations when the sweep is near-exact; bail
-        # out and let the refinement sweeps and the tail contract instead
+        # floor after O(1) iterations when the preconditioner is
+        # near-exact; bail out and let the refinement sweeps and the tail
+        # contract instead
         res = fgmres_flat(mv_h, pc_h, r, torch.zeros_like(r), tol, maxiter,
                           stall_limit=stall_limit, reduce=domain.reduce)
-        return proj(res.x, nullq), res.iters
+        return proj(res.x), res.iters
 
     def solve_mixed(An_l, b_l, tol, maxiter):
-        (An_l, An32, R_l, rint), sweep32 = factored(An_l, prep_mixed)
-
-        def mv64(v):
-            return proj(matvec(An_l, v.reshape(shape), rint).reshape(-1),
-                        nullq)
-
-        if R_l is not None:
-            b_l = b_l * R_l
-        flat_b = proj(b_l.reshape(-1), nullq)
+        (An32, rint), prec32, mv64, flat_b = prepared(An_l, b_l)
         bn = domain.norm(flat_b)
         target = float(tol) * (bn if bn > 0 else 1.0)
         x = torch.zeros_like(flat_b)
         r, rn = flat_b, bn
-        total = outer = 0
+        total = outer = sweeps = 0
         for _ in range(MIXED_SWEEPS):
             if rn <= target:
                 break
-            dz, its = inner(An32, sweep32, r / rn, inner_tol, rint, maxiter)
+            dz, its = inner(An32, prec32, r / rn, inner_tol, rint, maxiter)
             total += its
+            sweeps += 1
             x_new = x + dz * rn
             r_new = flat_b - mv64(x_new)
             rn_new = domain.norm(r_new)
@@ -450,7 +415,7 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                 vn = domain.norm(v)
                 if vn == 0.0:
                     return v
-                dz, its = inner(An32, sweep32, v / vn, 1e-2, rint, maxiter)
+                dz, its = inner(An32, prec32, v / vn, 1e-2, rint, maxiter)
                 inner_count += its
                 return dz * vn
 
@@ -463,51 +428,8 @@ def make_sharded_solve(ocean, domain, *, precision: str = "Double",
                 x, rn = x_new, rn_new
             total += inner_count
         return ShardedSolve(x.reshape(shape), total, rn / max(bn, 1e-300),
-                            outer)
+                            outer, sweeps)
 
-    solve_mixed.preconditioner = last
-    return solve_mixed
-
-
-def _columns_solve(ocean, domain, matvec, proj, nullq, shape):
-    """The Columns + Double solve of ``Ocean._solve_operator``
-    (``_get_prec_factors``, ``_solve_double``) on this rank's block."""
-    from ..solvers.preconditioner import (apply_column_prec,
-                                          build_column_blocks)
-    cfg = ocean.cfg
-    built = {}
-
-    def scaled(An_l):
-        """The row-scaled block, its row scale, the integral row's scale
-        and the column factors, kept while the solves take the same
-        tensor (as Ocean keeps its factors)."""
-        if built.get("An") is not An_l:
-            built.clear()
-            R_l, rint, An_s = None, 1.0, An_l
-            if cfg.scaling == "THCM":
-                R_l, rint = _row_scale(ocean, domain, An_l)
-                An_s = An_l * R_l[None, :, None]
-            built.update(An=An_l, R=R_l, rint=rint, An_s=An_s,
-                         factors=build_column_blocks(An_s))
-        return built["An_s"], built["R"], built["rint"], built["factors"]
-
-    def solve(An_l, b_l, tol, maxiter):
-        An_l, R_l, rint, factors = scaled(An_l)
-        if R_l is not None:
-            b_l = b_l * R_l
-
-        def mv(v):
-            return proj(matvec(An_l, v.reshape(shape), rint).reshape(-1),
-                        nullq)
-
-        def pc(v):
-            return proj(apply_column_prec(factors, v.reshape(shape))
-                        .reshape(-1), nullq)
-
-        flat_b = proj(b_l.reshape(-1), nullq)
-        res = fgmres_flat(mv, pc, flat_b, torch.zeros_like(flat_b),
-                          float(tol), maxiter, reduce=domain.reduce)
-        return ShardedSolve(proj(res.x, nullq).reshape(shape), res.iters,
-                            res.relres, 0)
-
+    solve = solve_host if host else solve_mixed if mixed else solve_double
+    solve.preconditioner = lambda: built.get("prec")
     return solve

@@ -20,8 +20,7 @@ import torch
 from ..models.ocean import ocean as _ocean
 from ..solvers import factory
 from ..utils import logging as log
-from .halo import (check_method, make_sharded_ops, make_sharded_solve,
-                   sharded_deflator)
+from .halo import make_sharded_ops, make_sharded_solve, sharded_deflator
 
 # Ocean.solve's Mixed refinement (Ocean._solve_mixed_host, _gmres_ir_host)
 OCEAN_MIXED = {"inner_tol": _ocean.MIXED_INNER_TOL,
@@ -33,15 +32,17 @@ class ShardedOcean:
     """The serial ``ocean`` (an ``Ocean`` on this rank's device, at the
     starting state) over the ranks of ``domain``.  The solve is
     ``Ocean.solve``'s, on the ranks: the method the ocean's solver
-    parameters name, Preconditioning BGS (factored and applied on the
-    rank's block, Double or Mixed, with every option of the Preconditioner
-    sublist, read by ``factory.bgs_options`` as the serial factory reads
-    them) or Columns (local to the rank, Double), on the THCM-row-scaled
-    system where the ocean scales, with the Mixed refinement of
-    ``Ocean.solve``, at the FGMRES tolerance and iterations, with the
-    pressure null modes of the first Jacobian deflated as ``Ocean``
-    deflates them.  Another method, or Columns with Mixed, raises
-    ValueError naming it here."""
+    parameters name (the Preconditioner sublist's "Method", else
+    "Preconditioning"), any the factory builds (:mod:`.methods`: None,
+    Columns, BGS and Teko partitioned over the ranks, BGS with every
+    option of the sublist, read by ``factory.bgs_options`` as the serial
+    factory reads them; Amesos and MILU on the matrix gathered to rank 0),
+    under either Precision (Amesos and MILU on the host-driven f64 FGMRES
+    whatever it says), on the THCM-row-scaled system where the ocean
+    scales, with the Mixed refinement of ``Ocean.solve``, at the FGMRES
+    tolerance and iterations, with the pressure null modes of the first
+    Jacobian deflated as ``Ocean`` deflates them.  A method the factory
+    does not know raises its ValueError here."""
 
     def __init__(self, ocean, domain):
         sp = ocean.solver_params
@@ -51,8 +52,9 @@ class ShardedOcean:
             prec["Method"] = sp.get("Preconditioning")
         params = factory.preconditioner_params(prec)
         self._method = params.get("Method")
+        factory.check_method(self._method)
+        self._params = params
         self._precision = sp.get("Precision")
-        check_method(self._method, self._precision)
         self._build_opts = self._apply_opts = None
         if self._method == "BGS":
             self._build_opts, self._apply_opts = factory.bgs_options(params)
@@ -98,7 +100,8 @@ class ShardedOcean:
             nullq = sharded_deflator(self.ocean, self.domain, self.jac)
             self._solve = make_sharded_solve(
                 self.ocean, self.domain, precision=self._precision,
-                preconditioner=self._method, apply_opts=self._apply_opts,
+                preconditioner=self._method, params=self._params,
+                apply_opts=self._apply_opts,
                 build_opts=self._build_opts, scale_double=True,
                 nullq=nullq, **OCEAN_MIXED)
         return self._solve
@@ -115,6 +118,7 @@ class ShardedOcean:
                                  sp.get("FGMRES iterations"))
         self.sol = res.x
         self.solve_iters = int(res.mv)
+        self.solve_sweeps, self.solve_outer = res.sweeps, res.outer
         self.solve_relres = float(res.relres)
         self.solve_tol = float(tol)
         self.solve_log.append((self.solve_iters, self.solve_relres))

@@ -32,6 +32,20 @@ from ..ops.stencil import stencil_to_csr, to_flat, from_flat
 from ..utils import logging as log
 
 
+# the methods make_preconditioner builds, and those of them whose factors
+# live on the host (their solve is the host-driven f64 FGMRES whatever
+# "Precision" says)
+METHODS = ("None", "Columns", "BGS", "Teko", "Amesos", "MILU")
+HOST_METHODS = ("Amesos", "MILU")
+
+
+def check_method(method: str) -> None:
+    """Raise make_preconditioner's ValueError for a method it does not
+    know."""
+    if method not in METHODS:
+        raise ValueError(f"SolverFactory: unknown method '{method}'")
+
+
 def default_prec_params() -> ParameterList:
     """The JAX package's defaults (factory.py:45-108), unchanged."""
     p = ParameterList("Preconditioner")
@@ -152,6 +166,7 @@ def make_preconditioner(params: ParameterList | dict | None, *,
     by BGS."""
     params = preconditioner_params(params)
     method = params.get("Method")
+    check_method(method)
 
     if method == "None":
         return (lambda An: None), (lambda fac, r: r)
@@ -236,8 +251,6 @@ def make_preconditioner(params: ParameterList | dict | None, *,
             return _host_solve(fac.solve, r)
 
         return build, apply
-
-    raise ValueError(f"SolverFactory: unknown method '{method}'")
 
 
 def _host_solve(solve: Callable, r: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.stencil import UU, VV, WW, PP, TT, SS, apply_stencil
+from .mg import Whole
 from .preconditioner import inv, column_blocks, apply_col_inv
 
 # variable groups of the De Niet blocking (Rearranger.H:47-53)
@@ -130,26 +131,25 @@ def build(An: torch.Tensor, *, periodic: bool) -> dict:
 
 
 def apply(fac: dict, r: torch.Tensor, *, periodic: bool,
-          sweeps: int = 1) -> torch.Tensor:
+          sweeps: int = 1, grid=None) -> torch.Tensor:
     """One (or more) block Gauss-Seidel sweeps
         z_Y = Minv_Y r_Y
         z_X = Minv_X (r_X - C_XY z_Y)
         [extra sweeps re-relax both groups]
     (TekoPreconditioner::ApplyInverse, TekoPreconditioner.H:63-88, with
-    an LU-block inverse factory)."""
+    an LU-block inverse factory).  grid takes the coupling products
+    (``grid.st``, as ``bgs.apply`` takes its grid): the whole grid's
+    (``mg.Whole``) by default, one rank's block with its neighbours' halo
+    for ``parallel.bgs.PartitionedGrid``; the group inverses are column
+    blocks, local to a rank."""
+    product = (grid or Whole(periodic)).st
     xv, yv = list(_XVARS), list(_YVARS)
     rX, rY = r[xv], r[yv]
     zY = apply_col_inv(fac["Minv_Y"], rY)
-    zX = apply_col_inv(
-        fac["Minv_X"],
-        rX - apply_stencil_rect(fac["C_XY"], zY, periodic=periodic))
+    zX = apply_col_inv(fac["Minv_X"], rX - product(fac["C_XY"], zY))
     for _ in range(sweeps - 1):
-        zY = apply_col_inv(
-            fac["Minv_Y"],
-            rY - apply_stencil_rect(fac["C_YX"], zX, periodic=periodic))
-        zX = apply_col_inv(
-            fac["Minv_X"],
-            rX - apply_stencil_rect(fac["C_XY"], zY, periodic=periodic))
+        zY = apply_col_inv(fac["Minv_Y"], rY - product(fac["C_YX"], zX))
+        zX = apply_col_inv(fac["Minv_X"], rX - product(fac["C_XY"], zY))
     z = torch.empty_like(r)
     z[xv] = zX
     z[yv] = zY

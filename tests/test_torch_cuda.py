@@ -603,3 +603,32 @@ def test_one_nccl_rank_matches_serial_on_card(tmp_path):
     assert res.mv == serial.solve_iters
     assert res.relres == pytest.approx(serial.solve_relres, rel=1e-10)
     torch.testing.assert_close(res.x, z, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("method,precision,tol", [("Teko", "Mixed", 1e-3),
+                                                  ("Amesos", "Double",
+                                                   1e-8)])
+def test_sharded_methods_are_ocean_solve_on_card(method, precision, tol):
+    """A partitioned method (Teko, Mixed: its f32 factors and coupling
+    products on the card) and a host one (Amesos: a CUDA residual through
+    the host LU) as one-rank ShardedOcean.solve on CUDA tensors, against
+    Ocean.solve on the same solver parameters: the same MV, the iterate
+    to 1e-10.  "Matvec kernel" "xla": the sharded f32 product is plain
+    PyTorch, and the kernel's summation order would part the iterates."""
+    from iemic_tpu_torch.parallel import Domain, ShardedOcean
+    solver = {"Preconditioning": method, "Precision": precision,
+              "FGMRES tolerance": tol, "FGMRES iterations": 200,
+              "Matvec kernel": "xla"}
+    serial = _masked_8x8x4("cuda", dict(solver))
+    z = serial.solve(-serial.rhs)
+    o = _masked_8x8x4("cuda", dict(solver))
+    so = ShardedOcean(o, Domain(8, 8, 4, periodic=True, device="cuda"))
+    so.compute_rhs()
+    so.compute_jacobian()
+    zs = so.solve(-so.rhs)
+    assert zs.is_cuda and so.solve_iters == serial.solve_iters
+    assert so.solve_relres <= tol
+    assert float((zs - z).abs().max() / z.abs().max()) <= 1e-10
+    assert so._solve.preconditioner().stats()["method"] == method

@@ -393,24 +393,6 @@ def test_one_rank_sweep_is_serial_bit_for_bit(ranks, name):
                                   ranks["serial"][name]["f32"])
 
 
-# what the sharded solve refuses: a method other than BGS and Columns,
-# Columns with Mixed
-REFUSED = [(method, precision) for method in ("None", "Teko", "Amesos",
-                                              "MILU")
-           for precision in ("Double", "Mixed")] + [("Columns", "Mixed")]
-
-
-@pytest.mark.parametrize("method,precision", REFUSED)
-def test_refused_sharded_methods_raise(ranks, method, precision):
-    """A method the sharded solve does not run raises ValueError naming
-    it when the solve is made, before any build."""
-    o = ranks["oceans"]["fixture"]
-    dom = Domain(8, 8, 4, periodic=True, device="cpu")
-    with pytest.raises(ValueError, match=f"Preconditioning '{method}'"):
-        make_sharded_solve(o, dom, precision=precision,
-                           preconditioner=method)
-
-
 @pytest.mark.parametrize("opts", [{"permutation": 4},
                                   dict(ONE, permutation=2, symmetric=True)])
 def test_sweep_options_bgs_apply_refuses_raise(ranks, opts):

@@ -11,8 +11,8 @@ with a sharded state (``__graft_entry__.py:240-287``,
 without a process group its solve is then ``Ocean.solve`` iteration for
 iteration (measured: the same MV and iterate, gap 0, on the 8x8x4
 fixture; before the repair the sharded Double solve stalled at 200 MV and
-the Mixed one took thousands of MV).  A method the sharded solve does not
-run raises ValueError naming it.  The four-rank solves on default
+the Mixed one took thousands of MV).  The other methods are
+tests/test_torch_parallel_methods.py's.  The four-rank solves on default
 settings are slow tests (four gloo ranks on default settings take
 minutes on the CPU).
 """
@@ -169,21 +169,6 @@ def test_shared_parser_gives_the_factory_its_keywords(monkeypatch, prec,
     so = _sharded({"Preconditioning": "BGS", "Precision": "Double",
                    "Preconditioner": copy.deepcopy(prec)})
     assert (so._build_opts, so._apply_opts) == expected
-
-
-@pytest.mark.parametrize("solver,name", [
-    ({"Preconditioning": "None"}, "None"),
-    ({"Preconditioning": "Teko"}, "Teko"),
-    ({"Preconditioning": "Amesos", "Precision": "Double"}, "Amesos"),
-    ({"Preconditioning": "MILU"}, "MILU"),
-    ({"Preconditioning": "BGS", "Preconditioner": {"Method": "Teko"}},
-     "Teko"),
-    ({"Preconditioning": "Columns", "Precision": "Mixed"}, "Columns")])
-def test_refused_methods_raise_by_name(solver, name):
-    """A method the sharded solve does not run, or Columns with Mixed,
-    raises ValueError naming it when the ShardedOcean is made."""
-    with pytest.raises(ValueError, match=f"Preconditioning '{name}'"):
-        _sharded(solver)
 
 
 def _true_relres(z) -> float:
