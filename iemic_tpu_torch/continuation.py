@@ -27,21 +27,21 @@ def _norm(v, model=None) -> float:
     reduce = getattr(model, "reduce", None)
     v = v.reshape(-1)
     if reduce is None:
-        return float(torch.linalg.norm(v))
-    return float(torch.sqrt(reduce(torch.dot(v, v)[None])[0]))
+        return float(log.host(torch.linalg.norm(v)))
+    return float(log.host(torch.sqrt(reduce(torch.dot(v, v)[None])[0])))
 
 
 def _dot(a, b, model=None) -> float:
     reduce = getattr(model, "reduce", None)
     if reduce is None:
-        return float(torch.sum(a * b))
-    return float(reduce(torch.sum(a * b)[None])[0])
+        return float(log.host(torch.sum(a * b)))
+    return float(log.host(reduce(torch.sum(a * b)[None])[0]))
 
 
 def _norm_inf(v, model=None) -> float:
     reduce_max = getattr(model, "reduce_max", None)
     if reduce_max is None:
-        return float(torch.amax(torch.abs(v)))
+        return float(log.host(torch.amax(torch.abs(v))))
     return reduce_max(torch.abs(v))
 
 
@@ -387,115 +387,116 @@ class Continuation:
         self.newton_iter = 0
         stalled = False
         while self.newton_iter < self.max_newton_iters:
-            res0 = res
-            mode = "F" if self.newton_iter == 0 else "A"
-            self.compute_dfdpar(mode)
+            with log.timer("Continuation: Newton iteration"):
+                res0 = res
+                mode = "F" if self.newton_iter == 0 else "A"
+                self.compute_dfdpar(mode)
 
-            R = -self.rhs_copy
-            self.norm_rhs = self._norm(self.rhs_copy)
+                R = -self.rhs_copy
+                self.norm_rhs = self._norm(self.rhs_copy)
 
-            state_diff = m.get_state() - self.storage.state0
-            par_diff = self.par - self.storage.par0
+                state_diff = m.get_state() - self.storage.state0
+                par_diff = self.par - self.storage.par0
 
-            if self.normalize_strategy == "O":
-                rbp = (self.ds
-                       - dot(self.state_dot, state_diff) * self.zeta
-                       - self.par_dot * par_diff)
-            elif self.normalize_strategy == "N":
-                rbp = (self.ds * self.ds
-                       - dot(state_diff, state_diff) * self.zeta
-                       - par_diff * par_diff)
-            else:
-                log.WARNING("undefined normalization strategy!")
-                rbp = 0.0
+                if self.normalize_strategy == "O":
+                    rbp = (self.ds
+                           - dot(self.state_dot, state_diff) * self.zeta
+                           - self.par_dot * par_diff)
+                elif self.normalize_strategy == "N":
+                    rbp = (self.ds * self.ds
+                           - dot(state_diff, state_diff) * self.zeta
+                           - par_diff * par_diff)
+                else:
+                    log.WARNING("undefined normalization strategy!")
+                    rbp = 0.0
 
-            m.compute_jacobian()
+                m.compute_jacobian()
 
-            missed = []
-            if not self.newt_chord_hybr:
-                m.solve(self.dfdpar)
-                y = m.get_solution()
+                missed = []
+                if not self.newt_chord_hybr:
+                    m.solve(self.dfdpar)
+                    y = m.get_solution()
+                    missed.append(_missed_tolerance(m))
+                m.solve(R)
+                z = m.get_solution()
                 missed.append(_missed_tolerance(m))
-            m.solve(R)
-            z = m.get_solution()
-            missed.append(_missed_tolerance(m))
-            missed = [mt for mt in missed if mt is not None]
+                missed = [mt for mt in missed if mt is not None]
 
-            if self.normalize_strategy == "O":
-                if self.newt_chord_hybr:
-                    par_dir = ((rbp - self.zeta * dot(self.state_dot, z))
-                               / (self.par_dot + self.zeta
-                                  * dot(self.state_dot, self.state_dot)))
+                if self.normalize_strategy == "O":
+                    if self.newt_chord_hybr:
+                        par_dir = ((rbp - self.zeta * dot(self.state_dot, z))
+                                   / (self.par_dot + self.zeta
+                                      * dot(self.state_dot, self.state_dot)))
+                    else:
+                        par_dir = ((rbp - self.zeta * dot(self.state_dot, z))
+                                   / (self.par_dot - self.zeta
+                                      * dot(self.state_dot, y)))
                 else:
-                    par_dir = ((rbp - self.zeta * dot(self.state_dot, z))
-                               / (self.par_dot - self.zeta
-                                  * dot(self.state_dot, y)))
-            else:
+                    if self.newt_chord_hybr:
+                        par_dir = ((rbp - 2 * self.zeta * dot(state_diff, z))
+                                   / (2 * par_diff + 2 * (self.zeta / par_diff)
+                                      * dot(state_diff, state_diff)))
+                    else:
+                        par_dir = ((rbp - 2 * self.zeta * dot(state_diff, z))
+                                   / (2 * par_diff - 2 * self.zeta
+                                      * dot(state_diff, y)))
+
                 if self.newt_chord_hybr:
-                    par_dir = ((rbp - 2 * self.zeta * dot(state_diff, z))
-                               / (2 * par_diff + 2 * (self.zeta / par_diff)
-                                  * dot(state_diff, state_diff)))
+                    state_dir = z + par_dir * self.state_dot
                 else:
-                    par_dir = ((rbp - 2 * self.zeta * dot(state_diff, z))
-                               / (2 * par_diff - 2 * self.zeta
-                                  * dot(state_diff, y)))
+                    state_dir = z - par_dir * y
 
-            if self.newt_chord_hybr:
-                state_dir = z + par_dir * self.state_dot
-            else:
-                state_dir = z - par_dir * y
+                m.set_state(m.get_state() + state_dir)
+                self.par = self.par + par_dir
+                m.set_par(self.par_name, self.par)
 
-            m.set_state(m.get_state() + state_dir)
-            self.par = self.par + par_dir
-            m.set_par(self.par_name, self.par)
+                self.newton_iter += 1
+                self.sum_newton_iter += 1
 
-            self.newton_iter += 1
-            self.sum_newton_iter += 1
+                m.compute_rhs()
+                self.norm_rhs_test = self._norm(m.get_rhs())
 
-            m.compute_rhs()
-            self.norm_rhs_test = self._norm(m.get_rhs())
-
-            if self.norm_rhs_test > self.predictor_bound:
-                log.INFO(f" norm too big! {self.norm_rhs_test:.3e}")
-                return 1
-
-            if self.back_tracking and self.norm_rhs < self.norm_rhs_test:
-                if self.run_backtracking(state_dir, par_dir):
+                if self.norm_rhs_test > self.predictor_bound:
+                    log.INFO(f" norm too big! {self.norm_rhs_test:.3e}")
                     return 1
 
-            nrm_state0 = self._norm(self.storage.state0)
-            if self._norm(state_dir) > 1e3 * nrm_state0 and nrm_state0 > 0:
-                log.WARNING(f"  |dx| = {self._norm(state_dir):.3e} >> "
-                            f"old |x| = {nrm_state0:.3e}")
-                return 1
+                if self.back_tracking and self.norm_rhs < self.norm_rhs_test:
+                    if self.run_backtracking(state_dir, par_dir):
+                        return 1
 
-            if self.residual_test == "R":
-                res = self.norm_rhs_test
-            elif self.residual_test == "D":
-                res = max(abs(par_dir), self._norm_inf(state_dir))
-                # a small update from a solve that made no progress is no
-                # sign of convergence: under "D" the iterate counts only
-                # where every solve of this iteration reached its request
-                # (the JAX corrector, iemic_tpu/continuation.py:433-446,
-                # accepts such updates; ROADMAP queue 3)
-                for relres, tol in missed:
-                    log.INFO(f"   Newton iter {self.newton_iter}: a "
-                             f"solve stopped at relres {relres:.3e}, short "
-                             f"of its tolerance {tol:.3e}; the update does "
-                             f"not count as converged")
-                stalled = bool(missed)
-            else:
-                log.WARNING("undefined residual test!")
-                res = 999.0
+                nrm_state0 = self._norm(self.storage.state0)
+                if self._norm(state_dir) > 1e3 * nrm_state0 and nrm_state0 > 0:
+                    log.WARNING(f"  |dx| = {self._norm(state_dir):.3e} >> "
+                                f"old |x| = {nrm_state0:.3e}")
+                    return 1
 
-            log.INFO(f"   Newton iter {self.newton_iter}: "
-                     f"|R|={self.norm_rhs_test:.3e} res={res:.3e} "
-                     f"dl={par_dir:.3e} l={self.par:.8e} "
-                     f"ratio={res0 / res if res else np.inf:.2f}")
+                if self.residual_test == "R":
+                    res = self.norm_rhs_test
+                elif self.residual_test == "D":
+                    res = max(abs(par_dir), self._norm_inf(state_dir))
+                    # a small update from a solve that made no progress is no
+                    # sign of convergence: under "D" the iterate counts only
+                    # where every solve of this iteration reached its request
+                    # (the JAX corrector, iemic_tpu/continuation.py:433-446,
+                    # accepts such updates; ROADMAP queue 3)
+                    for relres, tol in missed:
+                        log.INFO(f"   Newton iter {self.newton_iter}: a "
+                                 f"solve stopped at relres {relres:.3e}, "
+                                 f"short of its tolerance {tol:.3e}; the "
+                                 f"update does not count as converged")
+                    stalled = bool(missed)
+                else:
+                    log.WARNING("undefined residual test!")
+                    res = 999.0
 
-            if res < self.newton_tol and not stalled \
-                    and self.newton_iter >= self.min_newton_iters:
-                break
+                log.INFO(f"   Newton iter {self.newton_iter}: "
+                         f"|R|={self.norm_rhs_test:.3e} res={res:.3e} "
+                         f"dl={par_dir:.3e} l={self.par:.8e} "
+                         f"ratio={res0 / res if res else np.inf:.2f}")
+
+                if res < self.newton_tol and not stalled \
+                        and self.newton_iter >= self.min_newton_iters:
+                    break
 
         if not self.newt_chord_hybr:
             self.state_dot = y

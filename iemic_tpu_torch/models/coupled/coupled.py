@@ -32,8 +32,6 @@ preconditioner factors and its f64 stencil product.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -330,6 +328,13 @@ class CoupledModel:
         if fn is None:
             self._blocks[i, j] = None
             return None
+        with log.timer("CoupledModel: coupling blocks", sync=True):
+            blk = self._blocks[i, j] = self._probe_block(i, j, fn)
+        return blk
+
+    def _probe_block(self, i, j, fn):
+        """(D, src, cols, rows) of _block's C_ij from its probes."""
+        mi, mj = self.models[i], self.models[j]
         xi, xj = mi.get_state(), mj.get_state()
         Sj, Gj = _cell_layout(mj)
         src = self._reads(mj) if _kind(mj) == "Ocean" and \
@@ -363,8 +368,7 @@ class CoupledModel:
                 rows = torch.stack([torch.autograd.grad(
                     glob[r], leaf, retain_graph=True)[0].reshape(-1)
                     for r in range(glob.shape[0])])
-        blk = self._blocks[i, j] = (torch.stack(D, dim=1), src, cols, rows)
-        return blk
+        return torch.stack(D, dim=1), src, cols, rows
 
     def _reads(self, ocean):
         """The ocean slabs the atmosphere and sea-ice maps read: surface
@@ -431,6 +435,7 @@ class CoupledModel:
         for m in self.models:
             m.add_mass_to_jacobian(scale)
 
+    @log.timed("CoupledModel: precon")
     def apply_precon(self, x):
         """Block preconditioner sweep (CoupledModel.C:489-610)."""
         parts = self.split(x)
@@ -521,16 +526,15 @@ class CoupledModel:
         system, and the tolerance asked."""
         proj = self._project_ocean_null
         flat_b = proj(b.reshape(-1))
-        t0 = time.perf_counter()
-        with log.timer("CoupledModel: solve"):
+        with log.timer("CoupledModel: solve", sync=True):
             x, res = fgmres_host(
                 lambda v: proj(self.apply_matrix(v)), flat_b,
                 prec=lambda v: proj(self.apply_precon(v)),
                 tol=self.fgmres_tol, maxiter=self.fgmres_iters)
             self.sol = proj(x)
-            bn = float(torch.linalg.norm(flat_b))
-            rn = float(torch.linalg.norm(proj(self.apply_matrix(self.sol))
-                                         - flat_b))
+            bn = float(log.host(torch.linalg.norm(flat_b)))
+            rn = float(log.host(torch.linalg.norm(
+                proj(self.apply_matrix(self.sol)) - flat_b)))
         self.solve_iters = int(res.iters)
         self.solve_relres = rn / max(bn, 1e-300)
         self.solve_tol = float(self.fgmres_tol)
@@ -540,7 +544,7 @@ class CoupledModel:
         log.INFO(f"CoupledModel: FGMRES {self.solve_iters} iters, "
                  f"relres={self.solve_relres:.2e} (estimate "
                  f"{res.relres:.2e}, tolerance {self.fgmres_tol:.1e}) in "
-                 f"{time.perf_counter() - t0:.3f} s")
+                 f"{log.seconds('CoupledModel: solve'):.3f} s")
         return self.sol
 
     # -- state access --------------------------------------------------

@@ -587,34 +587,36 @@ class Ocean:
         refinement, a contraction guard with rollback, and a GMRES-IR
         tail (see the JAX module for the rationale)."""
         flat_b = _proj(b_s.reshape(-1), nullq)
-        bn = float(torch.linalg.norm(flat_b))
+        bn = float(log.host(torch.linalg.norm(flat_b)))
         target = tol * (bn if bn > 0 else 1.0)
         x = torch.zeros_like(flat_b)
         r = flat_b
         total = 0
-        rn = float(torch.linalg.norm(r))
-        for _ in range(max_refine):
-            if rn <= target:
-                break
-            dz, its, _ = self._inner(factors32, r / rn, nullq,
-                                     MIXED_INNER_TOL)
-            total += its
-            x_new = x + dz * rn
-            r_new = flat_b - self._mv64(x_new, nullq)
-            rn_new = float(torch.linalg.norm(r_new))
-            if rn_new >= 0.5 * rn:
-                # the f32 noise floor: accept only an improvement, then
-                # hand over to the monotone outer Krylov
-                if rn_new < rn:
-                    x, r, rn = x_new, r_new, rn_new
-                break
-            x, r, rn = x_new, r_new, rn_new
+        rn = float(log.host(torch.linalg.norm(r)))
+        with log.timer("Ocean: Mixed refinement"):
+            for _ in range(max_refine):
+                if rn <= target:
+                    break
+                dz, its, _ = self._inner(factors32, r / rn, nullq,
+                                         MIXED_INNER_TOL)
+                total += its
+                x_new = x + dz * rn
+                r_new = flat_b - self._mv64(x_new, nullq)
+                rn_new = float(log.host(torch.linalg.norm(r_new)))
+                if rn_new >= 0.5 * rn:
+                    # the f32 noise floor: accept only an improvement,
+                    # then hand over to the monotone outer Krylov
+                    if rn_new < rn:
+                        x, r, rn = x_new, r_new, rn_new
+                    break
+                x, r, rn = x_new, r_new, rn_new
         if rn > target:
             x, more, rn = self._gmres_ir_host(flat_b, x, r, rn, target,
                                               nullq, factors32)
             total += more
         return x.reshape(b_s.shape), total, rn / max(bn, 1e-300)
 
+    @log.timed("Ocean: GMRES-IR tail")
     def _gmres_ir_host(self, flat_b, x, r, rn, target, nullq, factors32,
                        maxouter: int = MIXED_TAIL_ITERS):
         """GMRES-IR: outer f64 FGMRES on (R J) dx = r preconditioned by
@@ -625,7 +627,7 @@ class Ocean:
         inner_count = [0]
 
         def pc(v):
-            vn = float(torch.linalg.norm(v))
+            vn = float(log.host(torch.linalg.norm(v)))
             if vn == 0.0:
                 return v
             dz, its, _ = self._inner(factors32, v / vn, nullq, 1e-2)
@@ -635,7 +637,8 @@ class Ocean:
         dx, _ = fgmres_host(lambda v: self._mv64(v, nullq), r, prec=pc,
                             tol=target / rn, maxiter=maxouter)
         x_new = x + dx
-        rn_new = float(torch.linalg.norm(flat_b - self._mv64(x_new, nullq)))
+        rn_new = float(log.host(torch.linalg.norm(
+            flat_b - self._mv64(x_new, nullq))))
         if rn_new >= rn:
             return x, inner_count[0], rn
         return x_new, inner_count[0], rn_new
@@ -675,13 +678,13 @@ class Ocean:
         its prepared f32 operator are what the next solve applies."""
         An = self.jac if An is None else An
         if self._prec_for is not An:
-            with log.timer("Ocean: build preconditioner"):
+            with log.timer("Ocean: build preconditioner", sync=True):
                 if self.cfg.scaling == "THCM":
                     from . import scaling as _scal
                     R, _ = _scal.row_col_scaling(An, self.landm)
                     self._rowscale = R
                     self._jac_s = An * R[None, :, None]
-                    self._rint = float(R[self.rowintcon])
+                    self._rint = float(log.host(R[self.rowintcon]))
                 else:
                     self._rowscale = None
                     self._jac_s = An
@@ -814,11 +817,11 @@ class Ocean:
     # Model contract
     # ------------------------------------------------------------------
     def compute_rhs(self) -> None:
-        with log.timer("Ocean: compute rhs"):
+        with log.timer("Ocean: compute rhs", sync=True):
             self.rhs = self._rhs(self.state, self.par)
 
     def compute_jacobian(self) -> None:
-        with log.timer("Ocean: compute jacobian"):
+        with log.timer("Ocean: compute jacobian", sync=True):
             self.jac = self._jacobian(self.state, self.par)
 
     def compute_mass_matrix(self) -> None:
@@ -862,7 +865,7 @@ class Ocean:
         nullq = self._get_deflator()
         factors, factors32 = self._get_prec_factors(An)
         b_s = b if self._rowscale is None else b * self._rowscale
-        with log.timer("Ocean: solve"):
+        with log.timer("Ocean: solve", sync=True):
             if self._prec_host_only:
                 x, iters, relres = self._solve_host_prec(b_s, tol, nullq,
                                                          factors)

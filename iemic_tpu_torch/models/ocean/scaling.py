@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ...ops.stencil import OCEAN, UU, VV, WW, PP, TT, SS
+from ...utils import logging as log
 
 
 def average_block(An: torch.Tensor, landm: np.ndarray) -> np.ndarray:
@@ -24,7 +25,7 @@ def average_block(An: torch.Tensor, landm: np.ndarray) -> np.ndarray:
     nl = max(int(ocean.sum()), 1)
     mask = torch.as_tensor(ocean, dtype=An.dtype, device=An.device)
     db = (An[4] * mask).sum(dim=(2, 3, 4)) / nl
-    return db.cpu().numpy()
+    return log.host(db).numpy()
 
 
 def scal(db: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..ops.stencil import UU, VV, WW, PP, TT, SS, windows
+from ..utils import logging as log
 from . import mg as _mg
 from .fgmres import fgmres_flat
 from .preconditioner import (inv, column_blocks, to_columns, from_columns,
@@ -317,6 +318,7 @@ class _Graphed:
     launching them one by one from Python costs several times their
     device time; a replay launches them all at once."""
 
+    @log.timed("BGS: record graphs", sync=True)
     def __init__(self, fn, example: torch.Tensor):
         self.inp = example.clone()
         side = torch.cuda.Stream()
@@ -327,6 +329,7 @@ class _Graphed:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.out = fn(self.inp)
+        log.count("graphs recorded")
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.inp.copy_(v)
@@ -358,6 +361,7 @@ def _inner_fgmres(matvec, prec, b, tol, maxiter, reduce=None):
     return res.x.reshape(b.shape)
 
 
+@log.timed("BGS: sweep", sync=True)
 def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
           nit_spp: int = 30, nit_uv: int = 12, nit_ts: int = 0,
           spp_scheme: str = "SI", permutation: int = 1,
@@ -374,7 +378,11 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
     M3).  graphs, for CUDA tensors, replays the 3D saddle iteration's
     kernels from graphs of this factor set instead of launching them one
     by one.  grid holds r and the factors (the factors' own, from
-    :func:`build`; the whole grid by default)."""
+    :func:`build`; the whole grid by default).
+
+    The sweep and each of its block solves are spans of
+    ``utils.logging``; none lies inside a function a graph records, whose
+    host code does not run at replay."""
     g = grid if grid is not None else _mg.Whole(periodic)
     _, l, m, n = r.shape
     mw, nw = g.shape(r)          # the whole grid's
@@ -382,10 +390,12 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
     Nuv = 2 * l * m * n
     st = g.st
 
+    @log.timed("BGS: Ap/Aw")
     def ap_solve(b):
         """ytilp = Ap \\ b: hydrostatic column solve (w rows, p col)."""
         return _apply_tridiag_inv(prec.ap_binv, prec.ap_dummy, b)
 
+    @log.timed("BGS: Ap/Aw")
     def aw_solve(b):
         """yw = Aw \\ b: continuity column solve (p rows, w col)."""
         return _apply_tridiag_inv(prec.aw_binv, prec.aw_dummy, b)
@@ -417,6 +427,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
         return torch.cat([z[:2], deflate(
             z[2], prec.spp_simple.nullmodes)[None]]).reshape(-1)
 
+    @log.timed("BGS: saddle")
     def spp_solve(ruv, rp):
         rbar = g.whole(torch.cat([ruv.mean(dim=1), rp.mean(dim=1)]))
         zbar = spp_pc(rbar.reshape(-1)) if nit_spp == 0 \
@@ -470,6 +481,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
             else ustar - ahat(st(prec.A_uvp, lift(dp)))
         return torch.cat([u.reshape(-1), p_deflate(p0 + dp).reshape(-1)])
 
+    @log.timed("BGS: saddle")
     def spp_solve3(ruv3, bp3):
         rhs = torch.cat([ruv3.reshape(-1),
                          p_deflate(bp3[0].mean(dim=0)).reshape(-1)])
@@ -493,6 +505,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
             if prec.uv_mg is not None else apply_col_inv(prec.uv_binv, v4)
         return z.reshape(-1)
 
+    @log.timed("BGS: Auv")
     def auv_solve(b):
         if nit_uv == 0:
             return uv_pc(b.reshape(-1)).reshape(b.shape)
@@ -553,6 +566,7 @@ def apply(prec: BGSPrec, r: torch.Tensor, *, periodic: bool,
             else apply_col_inv(prec.ts_rm_binv, v4)
         return z.reshape(-1)
 
+    @log.timed("BGS: ATS")
     def ats_solve(b):
         if prec.ts_rm is not None:
             qb = q_mul(b)

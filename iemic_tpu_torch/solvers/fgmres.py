@@ -5,7 +5,8 @@ GMRES, Ocean.C:961-1022).  Where the JAX package ran the iteration inside
 ``lax.while_loop``, here the loop runs on the host: the Krylov basis and
 the matvec / preconditioner stay on the tensors' device, and the small
 Hessenberg / Givens bookkeeping is done in numpy, in the working dtype,
-from one device-to-host copy per iteration.
+from one device-to-host copy per iteration (``utils.logging.host``; the
+Arnoldi step of each iteration is the span ``FGMRES: orthogonalize``).
 
   * :func:`fgmres_flat` — CGS2 Arnoldi, Givens rotations, ``stall_limit``
   * :func:`fgmres` — the same on tensors of any shape
@@ -24,6 +25,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils import logging as log
 
 
 class FGMRESResult(NamedTuple):
@@ -70,7 +73,7 @@ def fgmres_flat(matvec: Callable, prec: Callable, b: torch.Tensor,
     kw = dict(dtype=b.dtype, device=b.device)
 
     r0 = b - matvec(x0)
-    beta, bnorm = (float(v) for v in _norms(reduce, r0, b).cpu())
+    beta, bnorm = (float(v) for v in log.host(_norms(reduce, r0, b)))
     beta, bnorm = ndt(beta), ndt(bnorm)
     target = ndt(tol) * (bnorm if bnorm > 0.0 else ndt(1.0))
 
@@ -90,35 +93,36 @@ def fgmres_flat(matvec: Callable, prec: Callable, b: torch.Tensor,
         z = prec(V[j])
         w = matvec(z)
         Z[j] = z
-        # CGS2: two classical Gram-Schmidt passes against the basis
-        Vj = V[:j + 1]
-        h1 = _sum(reduce, Vj @ w)
-        w = w - Vj.T @ h1
-        h2 = _sum(reduce, Vj @ w)
-        w = w - Vj.T @ h2
-        hj1 = _norms(reduce, w)[0]
-        V[j + 1] = torch.where(hj1 > 0.0, w / hj1, w)
-        col = torch.cat([h1 + h2, hj1[None]]).cpu().numpy()
-        Hcol = np.zeros(maxiter + 1, ndt)
-        Hcol[:j + 2] = col
-        # previous Givens rotations, then the new one
-        for i in range(j):
-            hi = cs[i] * Hcol[i] + sn[i] * Hcol[i + 1]
-            Hcol[i + 1] = -sn[i] * Hcol[i] + cs[i] * Hcol[i + 1]
-            Hcol[i] = hi
-        denom = np.sqrt(Hcol[j] ** 2 + Hcol[j + 1] ** 2)
-        c = Hcol[j] / denom if denom > 0.0 else ndt(1.0)
-        s = Hcol[j + 1] / denom if denom > 0.0 else ndt(0.0)
-        cs[j], sn[j] = c, s
-        Hcol[j] = c * Hcol[j] + s * Hcol[j + 1]
-        Hcol[j + 1] = 0.0
-        H[:, j] = Hcol
-        gj1 = -s * g[j]
-        g[j + 1] = gj1
-        g[j] = c * g[j]
-        res_new = abs(gj1)
-        stall = stall + 1 if res_new > res * ndt(0.999) else 0
-        res = res_new
+        with log.timer("FGMRES: orthogonalize"):
+            # CGS2: two classical Gram-Schmidt passes against the basis
+            Vj = V[:j + 1]
+            h1 = _sum(reduce, Vj @ w)
+            w = w - Vj.T @ h1
+            h2 = _sum(reduce, Vj @ w)
+            w = w - Vj.T @ h2
+            hj1 = _norms(reduce, w)[0]
+            V[j + 1] = torch.where(hj1 > 0.0, w / hj1, w)
+            col = log.host(torch.cat([h1 + h2, hj1[None]])).numpy()
+            Hcol = np.zeros(maxiter + 1, ndt)
+            Hcol[:j + 2] = col
+            # previous Givens rotations, then the new one
+            for i in range(j):
+                hi = cs[i] * Hcol[i] + sn[i] * Hcol[i + 1]
+                Hcol[i + 1] = -sn[i] * Hcol[i] + cs[i] * Hcol[i + 1]
+                Hcol[i] = hi
+            denom = np.sqrt(Hcol[j] ** 2 + Hcol[j + 1] ** 2)
+            c = Hcol[j] / denom if denom > 0.0 else ndt(1.0)
+            s = Hcol[j + 1] / denom if denom > 0.0 else ndt(0.0)
+            cs[j], sn[j] = c, s
+            Hcol[j] = c * Hcol[j] + s * Hcol[j + 1]
+            Hcol[j + 1] = 0.0
+            H[:, j] = Hcol
+            gj1 = -s * g[j]
+            g[j + 1] = gj1
+            g[j] = c * g[j]
+            res_new = abs(gj1)
+            stall = stall + 1 if res_new > res * ndt(0.999) else 0
+            res = res_new
         j += 1
 
     y = torch.as_tensor(_backsub(H, g, j), **kw)
@@ -138,7 +142,7 @@ def fgmres_host(matvec: Callable, b: torch.Tensor, *,
     b = b.reshape(-1)
     N = b.shape[0]
     kw = dict(dtype=b.dtype, device=b.device)
-    bnorm = float(_norms(reduce, b)[0])
+    bnorm = float(log.host(_norms(reduce, b)[0]))
     target = tol * (bnorm if bnorm > 0 else 1.0)
     if prec is None:
         prec = lambda v: v  # noqa: E731
@@ -162,25 +166,26 @@ def fgmres_host(matvec: Callable, b: torch.Tensor, *,
         z = prec(V[j]).reshape(-1)
         w = matvec(z).reshape(-1)
         Z[j] = z
-        for i in range(j + 1):
-            H[i, j] = float(_sum(reduce, V[i] @ w))
-            w = w - H[i, j] * V[i]
-        H[j + 1, j] = float(_norms(reduce, w)[0])
-        if H[j + 1, j] > 0:
-            V[j + 1] = w / H[j + 1, j]
-        for i in range(j):
-            hi = cs[i] * H[i, j] + sn[i] * H[i + 1, j]
-            H[i + 1, j] = -sn[i] * H[i, j] + cs[i] * H[i + 1, j]
-            H[i, j] = hi
-        denom = np.hypot(H[j, j], H[j + 1, j])
-        c, s = (1.0, 0.0) if denom == 0 else (H[j, j] / denom,
-                                              H[j + 1, j] / denom)
-        cs[j], sn[j] = c, s
-        H[j, j] = c * H[j, j] + s * H[j + 1, j]
-        H[j + 1, j] = 0.0
-        g[j + 1] = -s * g[j]
-        g[j] = c * g[j]
-        res = abs(g[j + 1])
+        with log.timer("FGMRES: orthogonalize"):
+            for i in range(j + 1):
+                H[i, j] = float(log.host(_sum(reduce, V[i] @ w)))
+                w = w - H[i, j] * V[i]
+            H[j + 1, j] = float(log.host(_norms(reduce, w)[0]))
+            if H[j + 1, j] > 0:
+                V[j + 1] = w / H[j + 1, j]
+            for i in range(j):
+                hi = cs[i] * H[i, j] + sn[i] * H[i + 1, j]
+                H[i + 1, j] = -sn[i] * H[i, j] + cs[i] * H[i + 1, j]
+                H[i, j] = hi
+            denom = np.hypot(H[j, j], H[j + 1, j])
+            c, s = (1.0, 0.0) if denom == 0 else (H[j, j] / denom,
+                                                  H[j + 1, j] / denom)
+            cs[j], sn[j] = c, s
+            H[j, j] = c * H[j, j] + s * H[j + 1, j]
+            H[j + 1, j] = 0.0
+            g[j + 1] = -s * g[j]
+            g[j] = c * g[j]
+            res = abs(g[j + 1])
         j += 1
 
     y = np.linalg.solve(H[:j, :j], g[:j]) if j else np.zeros(0)

@@ -36,6 +36,7 @@ class Newton:
         self.model.compute_jacobian()
         return self.model.solve(b)
 
+    @log.timed("Newton: run")
     def run(self, x0):
         x = x0
         self.Fx = self._F(x)
@@ -46,8 +47,8 @@ class Newton:
             dx = self._Jsol(x, self.Fx)
             x = x - dx
             self.Fx = self._F(x)
-            self.norm_dx, self.norm_F = torch.stack(
-                [dx.abs().max(), torch.linalg.norm(self.Fx)]).tolist()
+            self.norm_dx, self.norm_F = log.host(torch.stack(
+                [dx.abs().max(), torch.linalg.norm(self.Fx)])).tolist()
 
             log.INFO(f"  Newton iter {self.steps}: ||F||={self.norm_F:.3e}"
                      f" ||dx||inf={self.norm_dx:.3e}")
