@@ -18,6 +18,13 @@ Phases, each printing its own line:
                 the grid, of x and of y, over 3.35 TB/s), cuSPARSE
                 beside them at 12x38x97 and 12x38x100, and one read of
                 all coefficients by PyTorch
+  3b. block  — the BGS sweep's sub-block kernel (both entry points)
+                against its plain version: the (a, b) in {1, 2}^2 at the
+                ocean cell's 96x38x12 in f32, the coupled cell's 64x32x12
+                in f64 and rows of 97 in both, periodic and not, x as a
+                tensor, a stride-0 expand and with A off its 16-byte
+                boundary; the other shapes at 6x6x3; CUDA-event times
+                beside the bound and the plain version's
   4. assembly — F and the f64 stencil tensor An of the global grid
                 computed on the card against the port on the CPU
   5. effort   — one production solve (BGS + Mixed, tol 1e-3) of the
@@ -123,9 +130,9 @@ Phases, each printing its own line:
                 whether the step was accepted, and one coupled FGMRES
                 iteration split with synchronised timers.  (c)
                 time_coupled there, COUPLED_TIME_STEPS theta steps: NR, MV
-                and seconds per step, status 0.  The coupled path is f64
-                and launches no kernel: the phase's launch count is
-                printed and must be 0
+                and seconds per step, status 0.  The coupled path is f64:
+                its launches are printed, no stencil matvec and some
+                stencil_block_f64 (the ocean's sweep)
  13. parallel — the domain-decomposed ocean (iemic_tpu_torch/parallel,
                 main/multichip.py) on the masked global 96x38x12 grid at
                 the effort phase's state.  (a) One rank over NCCL: the
@@ -187,7 +194,8 @@ Phases, each printing its own line:
                 on the masked 8x8x4 grid, on one rank against Ocean.solve
                 and on 2x2, their gathers to rank 0 and bytes gathered per
                 build and per application.  The phase's launches of the
-                stencil kernel, the ranks' included, are printed (0)
+                kernels, the ranks' included, are printed (no stencil
+                matvec; the sub-block kernel from one rank's sweeps)
 
 The line before the last is the kernels' JSON record: ms, plain_ms and
 bound_ms on the kernel phase's random coefficients; library_ms cuSPARSE
@@ -195,7 +203,12 @@ on the effort phase's periodic 96x38x12 Jacobian, the main path's own
 operator, whose zero coefficients CSR leaves out (the effort line gives
 every entry point's time on it beside cuSPARSE); launches of the main
 phase (both runs), the transient, topo, lyapunov, coupled and parallel
-phases.  The last line is {"ok": true, "device": {...}}.
+phases (the ranks' included), by entry point, for the sub-block kernel's
+rows too (each row of an entry point carries that entry's count; the
+saddle's graph replays are not host launches and count once, at their
+recording).  The effort, main and coupled phases each fail where their
+sweep launched no sub-block kernel.  The last line is {"ok": true,
+"device": {...}}.
 Any failed check raises (exit code 1), and a run that outlasts
 WATCHDOG_S seconds prints its stack and exits with code 1.
 """
@@ -307,6 +320,8 @@ JDQZ_PARAMS = {"Shift (real part)": 0.0, "Shift (imaginary part)": 0.0,
 # the kernel of the main path: the bundle's f32 coefficients on its
 # 96x38x12 grid take the wide kernel
 MAIN_ENTRY = "stencil_matvec_f32_wide"
+# the sub-block kernel of the f32 sweep (BGS + Mixed)
+BLOCK_ENTRY = "stencil_block_f32"
 # the whole run must end within the smoke's 1200 s: a solve that falls
 # into a GMRES-IR tail of hours fails the run here instead
 WATCHDOG_S = 1140
@@ -770,6 +785,117 @@ def phase_kernel(hopper, card_line: str) -> dict:
     return rec
 
 
+# the sub-block kernel's grids and types: the ocean cell's f32 sweep at
+# 96x38x12, the coupled cell's f64 sweep at 64x32x12, and a row of 97 in
+# both types; its sub-block shapes (a, b); its limit on
+# |kernel - plain| / (|A| |x|): a sum of at most 27 * b = 108 products,
+# each rounded once, in another order than the plain version's
+BLOCK_GRIDS = ((12, 38, 96, torch.float32), (12, 32, 64, torch.float64),
+               (12, 38, 97, torch.float32), (12, 38, 97, torch.float64))
+BLOCK_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+
+
+def _check_block(hopper, A, x, periodic, what):
+    """One sub-block launch against the plain version, each value within
+    BLOCK_TOL of the product of |A| and |x|; returns the largest ratio
+    of error to that product's value."""
+    entry, _ = hopper.block_variant(A, x)
+    before = hopper.BLOCK_LAUNCHES[entry]
+    y = hopper.apply_block(A, x, periodic=periodic)
+    ref = hopper.apply_block_plain(A, x, periodic=periodic)
+    scale = hopper.apply_block_plain(A.abs(), x.abs(), periodic=periodic)
+    torch.cuda.synchronize()
+    ratio = float(((y - ref).abs()
+                   / scale.clamp(min=torch.finfo(A.dtype).tiny)).max())
+    if hopper.BLOCK_LAUNCHES[entry] != before + 1:
+        raise AssertionError(f"{what}: {entry} was not launched once")
+    if not (bool(torch.isfinite(y).all()) and ratio <= BLOCK_TOL[A.dtype]):
+        raise AssertionError(f"{what} periodic={periodic} disagrees: "
+                             f"{ratio:.3e} of |A| |x| (limit "
+                             f"{BLOCK_TOL[A.dtype]:.0e})")
+    return ratio
+
+
+def phase_block_kernel(hopper, card_line: str) -> dict:
+    """The sub-block kernel's entry points against the plain version at
+    BLOCK_GRIDS, for the sweep's (a, b) in {1, 2}^2, periodic and not,
+    with x as a tensor, as a stride-0 expand in k (the saddle's lifted
+    pressure) and with A off its 16-byte boundary (the general layout);
+    the other shapes of BLOCK_SHAPES at 6x6x3.  CUDA-event times of kernel
+    and plain version beside the bound (the needed coefficients, x and y
+    once, over 3.35 TB/s) at the cells' grids.  Returns the record of
+    each entry point and shape at its cell's grid, periodic."""
+    rec = {}
+    for l, m, n, dtype in BLOCK_GRIDS:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        item = torch.tensor([], dtype=dtype).element_size()
+        for a, b in ((2, 2), (2, 1), (1, 2), (1, 1)):
+            A = torch.randn((27, a, b, l, m, n), generator=g, device="cuda",
+                            dtype=dtype)
+            x = torch.randn((b, l, m, n), generator=g, device="cuda",
+                            dtype=dtype)
+            lifted = torch.randn((m, n), generator=g, device="cuda",
+                                 dtype=dtype).expand(b, l, m, n)
+            off = torch.empty(A.numel() + 1, device="cuda",
+                              dtype=dtype)[1:].view_as(A).copy_(A)
+            entry, row = hopper.block_variant(A, x)
+            if row != (n % hopper.BLOCK_VEC[dtype] == 0) or \
+                    hopper.block_variant(off, x)[1]:
+                raise AssertionError(f"{entry} at {(l, m, n)}: layout "
+                                     f"{row} not the grid's")
+            for periodic in (False, True):
+                what = f"{entry} ({a},{b}) at {(l, m, n)}"
+                ratio = max(_check_block(hopper, A, x, periodic, what),
+                            _check_block(hopper, A, lifted, periodic,
+                                         what + " stride-0 x"),
+                            _check_block(hopper, off, x, periodic,
+                                         what + " general layout"))
+                line = (f"block kernel {entry} shape=(27,{a},{b},{l},{m},"
+                        f"{n}) periodic={periodic} layout "
+                        f"{'row' if row else 'general'}: largest "
+                        f"|error| / (|A| |x|) {ratio:.3e} (limit "
+                        f"{BLOCK_TOL[dtype]:.0e}; tensor, stride-0 and "
+                        f"general-layout x)")
+                if n == 97:
+                    print(line, flush=True)
+                    continue
+                need = hopper.needed_coefficients(l, m, n, periodic, a, b)
+                nbytes = (need + (a + b) * l * m * n) * item
+                bound = 1e3 * nbytes / HBM_BYTES_PER_S
+                copies = [A, A.clone(), A.clone()]       # see time_ms
+                kernel = [lambda c=c: hopper.apply_block(
+                    c, x, periodic=periodic) for c in copies]
+                time_ms(kernel)     # warm-up: the fresh copies' first reads
+                ms = time_ms(kernel)
+                plain_ms = time_ms([lambda c=c: hopper.apply_block_plain(
+                    c, x, periodic=periodic) for c in copies])
+                print(f"{line} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"bound {bound:.4f} ms by bytes ({100 * bound / ms:.0f}"
+                      f"% of bound; {nbytes} bytes needed) [{card_line}]",
+                      flush=True)
+                if periodic:
+                    rec[f"{entry} ({a},{b})"] = dict(
+                        ratio=ratio, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound)
+                del copies
+    # the 2D saddle multigrid's and the Teko couplings' shapes
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for a, b in sorted(set(hopper.BLOCK_SHAPES) - {(1, 1), (1, 2), (2, 1),
+                                                     (2, 2)}):
+        for dtype in (torch.float32, torch.float64):
+            A = torch.randn((27, a, b, 6, 6, 3), generator=g, device="cuda",
+                            dtype=dtype)
+            x = torch.randn((b, 6, 6, 3), generator=g, device="cuda",
+                            dtype=dtype)
+            for periodic in (False, True):
+                ratio = _check_block(hopper, A, x, periodic,
+                                     f"({a},{b}) {dtype} at 6x6x3")
+                print(f"block kernel ({a},{b}) {dtype} at 6x6x3 "
+                      f"periodic={periodic}: {ratio:.3e} of |A| |x|",
+                      flush=True)
+    return rec
+
+
 def phase_assembly() -> None:
     """F and An of the global grid: card against CPU, same state."""
     from iemic_tpu_torch.config import read_xml
@@ -863,14 +989,19 @@ def phase_effort(hopper, card_line: str):
         data_dir=os.path.join(REPO, "data"), device="cuda")
     o.compute_rhs()
     o.compute_jacobian()
+    before = hopper.BLOCK_LAUNCHES[BLOCK_ENTRY]
     t0 = time.perf_counter()
     dx = o.solve(-o.rhs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     mv, relres = o.solve_iters, o.solve_relres
+    block = hopper.BLOCK_LAUNCHES[BLOCK_ENTRY] - before
     print(f"effort MV {mv} relres {relres:.3e} in {wall:.3f} s (JAX record "
-          f"{EFFORT_MV} MV to 6.92e-4, tol {EFFORT_TOL:g}) [{card_line}]",
-          flush=True)
+          f"{EFFORT_MV} MV to 6.92e-4, tol {EFFORT_TOL:g}), {block} "
+          f"{BLOCK_ENTRY} launches [{card_line}]", flush=True)
+    if block <= 0:
+        raise AssertionError(f"effort: the BGS + Mixed solve launched no "
+                             f"{BLOCK_ENTRY}")
     if not (relres < EFFORT_TOL and abs(mv - EFFORT_MV) <= 0.1 * EFFORT_MV):
         raise AssertionError(f"effort: {mv} MV to {relres:.3e}; the JAX "
                              f"package needs {EFFORT_MV} MV to reach "
@@ -1104,7 +1235,7 @@ def _eigen_small(hopper, card_line: str) -> None:
           f"{jdqz.kmax_converged} of {jdqz.kmax} pairs converged (tolerance "
           f"{jdqz.tol:g}) in {jdqz.op_applications} solves of the analysis, "
           f"{sum(int(mv) for mv, _ in solves)} MV; run {wall:.1f} s, "
-          f"{launches} kernel launches {dict(hopper.LAUNCHES_BY_ENTRY)}; MV "
+          f"{launches} kernel launches {hopper.launches_by_entry()}; MV "
           "per solve " + " ".join(mv for mv, _ in solves) + " | relres "
           + " ".join(r for _, r in solves) + f" [{card_line}]", flush=True)
     if status != 0 or jdqz.kmax_converged == 0:
@@ -1192,7 +1323,7 @@ def _eigen_global(hopper, card_line: str) -> None:
           f"P at the starting point, at most {VARIANT_CAP} inner iterations a "
           f"solve): {jdqz.op_applications} solves, "
           f"{sum(int(mv) for mv, _ in solves)} MV in {wall:.1f} s, {launches} "
-          f"kernel launches {dict(hopper.LAUNCHES_BY_ENTRY)}; MV per solve "
+          f"kernel launches {hopper.launches_by_entry()}; MV per solve "
           + " ".join(mv for mv, _ in solves) + " | relres "
           + " ".join(r for _, r in solves) + f" [{card_line}]", flush=True)
     cycles = re.findall(r"JDQZ: (\d+) steps, search space (\d+): (\d+) of "
@@ -1329,7 +1460,7 @@ def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = hopper.LAUNCHES
-            by_entry = dict(hopper.LAUNCHES_BY_ENTRY)
+            by_entry = hopper.launches_by_entry()
             info = open(os.path.join(work, "info_0.txt")).read()
             cdata = open(os.path.join(work, "cdata.txt")).read()
             profile = open(os.path.join(work, "profile_output")).read()
@@ -1375,6 +1506,9 @@ def phase_main(hopper, card_line: str, entry: str = MAIN_ENTRY) -> dict:
     if by_entry[entry] <= 0 or by_entry[entry] != launches:
         raise AssertionError(f"the main path did not go through "
                              f"{entry} alone: {by_entry}")
+    if by_entry[BLOCK_ENTRY] <= 0:
+        raise AssertionError(f"the main path's sweep launched no "
+                             f"{BLOCK_ENTRY}: {by_entry}")
     if not solves or not all(np.isfinite(r) and r < SOLVE_TOL
                              for _, r in solves):
         raise AssertionError("a solve missed its tolerance "
@@ -1474,7 +1608,7 @@ def _spinup(hopper, card_line: str):
         status, ocean, stepper = time_ocean.run(work, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, by_entry = hopper.LAUNCHES, dict(hopper.LAUNCHES_BY_ENTRY)
+        launches, by_entry = hopper.LAUNCHES, hopper.launches_by_entry()
         info = open(os.path.join(work, "info_0.txt")).read()
         tdata = open(os.path.join(work, "tdata.txt")).read()
         prof = _profile(os.path.join(work, "profile_output"))
@@ -1595,7 +1729,7 @@ def _stochastic_steps(hopper, ocean, stepper, card_line: str):
           f"asks {pars['Newton tolerance']:g}", flush=True)
     if not bool(torch.isfinite(x).all()):
         raise AssertionError("stochastic steps: state not finite")
-    return dict(hopper.LAUNCHES_BY_ENTRY), model
+    return hopper.launches_by_entry(), model
 
 
 def _ams_copy(tmp: str, name: str, solver: dict | None) -> str:
@@ -1742,7 +1876,7 @@ def _rare_events(hopper, card_line: str) -> dict:
         bgs = _ams_copy(tmp, "bgs", None)
         hopper.reset_launches()
         card = _trajectory(bgs, "cuda", states)
-        launches, by_entry = hopper.LAUNCHES, dict(hopper.LAUNCHES_BY_ENTRY)
+        launches, by_entry = hopper.LAUNCHES, hopper.launches_by_entry()
         ref = _trajectory(direct[1], "cpu", states)
     for method in RARE_EVENT_METHODS:
         c, h = runs["cuda"][method], runs["cpu"][method]
@@ -2090,7 +2224,7 @@ def phase_topo(hopper, card_line: str) -> dict:
             status, topo, _ = run_topo.run(work, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, by_entry = hopper.LAUNCHES, dict(hopper.LAUNCHES_BY_ENTRY)
+        launches, by_entry = hopper.LAUNCHES, hopper.launches_by_entry()
         info = open(os.path.join(work, "info_0.txt")).read()
         cdata = open(os.path.join(work, "cdata.txt")).read()
         prof = _profile(os.path.join(work, "profile_output"))
@@ -2219,7 +2353,7 @@ def _lyapunov_bgs_solve(hopper, x, par, card_line: str) -> dict:
     y = _capped_solve(o, b, VARIANT_CAP)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    by_entry = dict(hopper.LAUNCHES_BY_ENTRY)
+    by_entry = hopper.launches_by_entry()
     true = _true_relres(o, y, b)
     print(f"lyapunov BGS + Mixed at the point (the bundle's solver, "
           f"tangent system, at most {VARIANT_CAP} inner iterations, no "
@@ -2227,8 +2361,11 @@ def _lyapunov_bgs_solve(hopper, x, par, card_line: str) -> dict:
           f"({'within' if true < tol else 'short of'} the bundle's "
           f"{tol:g}), {wall:.3f} s, launches {by_entry} [{card_line}]",
           flush=True)
-    entries = {k for k, v in by_entry.items() if v}
+    # the f32 stencil matvec and f32 sweeps (the f64 build's null-mode
+    # gate launches stencil_block_f64 twice a factor set)
+    entries = {k for k in hopper.ENTRIES if by_entry[k]}
     if not (entries and entries <= {MAIN_ENTRY, "stencil_matvec_f32"}
+            and by_entry[BLOCK_ENTRY] > 0
             and bool(torch.isfinite(y).all()) and true < 1.0):
         raise AssertionError(f"lyapunov BGS + Mixed solve: {by_entry}, "
                              f"true relres {true:.3e}")
@@ -2559,8 +2696,9 @@ def _coupled_split(c, card_line: str) -> None:
 def phase_coupled(hopper, card_line: str) -> dict:
     """(a) the card against the CPU on the cut aquaplanet; (b) run_coupled
     and (c) time_coupled on run/aquaplanet at full width on the card.
-    Returns the kernel launches of (b) and (c) by entry point: none, as
-    the coupled path runs f64 throughout."""
+    Returns the kernel launches of (b) and (c) by entry point: the f64
+    sweep's stencil_block_f64 alone, as the coupled path runs f64
+    throughout."""
     from iemic_tpu_torch.main import run_coupled, time_coupled
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2603,7 +2741,7 @@ def phase_coupled(hopper, card_line: str) -> dict:
         tstatus, tcpl, _ = time_coupled.run(work, "cuda")
         torch.cuda.synchronize()
         twall = time.perf_counter() - t0
-        by_entry = dict(hopper.LAUNCHES_BY_ENTRY)
+        by_entry = hopper.launches_by_entry()
         tinfo = open(os.path.join(work, "info_0.txt")).read()
         tdata = [ln.split() for ln in
                  open(os.path.join(work, "tdata.txt")).read().splitlines()
@@ -2632,9 +2770,11 @@ def phase_coupled(hopper, card_line: str) -> dict:
     if not (finite and all(np.isfinite(float(v)) for v in newton)):
         raise AssertionError("the coupled continuation's state or |F| is "
                              "not finite")
-    if sum(by_entry.values()):
-        raise AssertionError(f"the coupled path launched the f32 kernel: "
-                             f"{by_entry}")
+    if sum(by_entry[k] for k in hopper.ENTRIES) or \
+            by_entry["stencil_block_f64"] <= 0:
+        raise AssertionError(f"the coupled path launched a stencil matvec "
+                             f"kernel, or its f64 sweep no "
+                             f"stencil_block_f64: {by_entry}")
     if not (tstatus == 0 and len(tdata) == COUPLED_TIME_STEPS and tfinite):
         raise AssertionError(f"time_coupled returned {tstatus} after "
                              f"{len(tdata)} of {COUPLED_TIME_STEPS} steps")
@@ -3050,9 +3190,10 @@ def phase_parallel(hopper, card_line: str) -> dict:
     run's three stages at PARALLEL_GRID, its Newton update and its
     continuation step held to (a)'s; (c) the dry run at its own grid; (d)
     the sharded solve's other methods.  Returns the kernel launches of
-    the phase, the ranks' included, by entry point: none, as the sharded
-    path contracts its windows in plain PyTorch (the JAX package's
-    reaches no Pallas kernel)."""
+    the phase, the ranks' included, by entry point: no stencil matvec, as
+    the sharded operator contracts its windows in plain PyTorch (the JAX
+    package's reaches no Pallas kernel); the sub-block kernel from the
+    one-rank sweeps on the card alone."""
     from iemic_tpu_torch.main import multichip
     from iemic_tpu_torch.parallel import decomp2d
 
@@ -3174,7 +3315,7 @@ def phase_parallel(hopper, card_line: str) -> dict:
     methods = _parallel_methods(multichip, card_line)
     print(f"parallel (d) {time.perf_counter() - t0:.1f} s [{card_line}]",
           flush=True)
-    launches = dict(hopper.LAUNCHES_BY_ENTRY)
+    launches = hopper.launches_by_entry()
     for counts in [r["launches"] for r in ranks + small] + methods:
         for entry, n in counts.items():
             launches[entry] += n
@@ -3204,6 +3345,9 @@ def main() -> int:
     t0 = time.perf_counter()
     rec = phase_kernel(hopper, card_line)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    block_rec = phase_block_kernel(hopper, card_line)
+    print(f"block kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_assembly()
     print(f"assembly phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3257,16 +3401,24 @@ def main() -> int:
           f"{parallel_launches}", flush=True)
 
     print(f"smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
+    phases = (main_launches, general_launches, transient_launches,
+              topo_launches, lyapunov_launches, coupled_launches,
+              parallel_launches)
+    launches = {entry: sum(phase[entry] for phase in phases)
+                for entry in hopper.launches_by_entry()}
+    print(f"main-path launches by entry point, the phases summed "
+          f"{launches}", flush=True)
     print(json.dumps({"kernels": [dict(
         name=entry, route="cuda",
         source="iemic_tpu_torch/csrc/stencil_matvec.cu",
         replaces="iemic_tpu/ops/stencil_pallas.py:84",
-        launches=sum(phase[entry] for phase in (
-            main_launches, general_launches, transient_launches,
-            topo_launches, lyapunov_launches, coupled_launches,
-            parallel_launches)),
+        launches=launches[entry],
         library_ms=jacobian_library_ms, **rec[entry])
-        for entry in hopper.ENTRIES]}))
+        for entry in hopper.ENTRIES] + [dict(
+            name=name, route="cuda",
+            source="iemic_tpu_torch/csrc/stencil_block.cu", replaces=None,
+            launches=launches[name.split()[0]], **block_rec[name])
+        for name in block_rec]}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -591,11 +591,11 @@ def job_gate(device, workdir):
 
 
 def job_launches(device):
-    """This process's launches of the Hopper stencil kernel, by entry
-    point (the sharded path launches none, as the JAX package's reaches
-    no Pallas kernel)."""
+    """This process's launches of the Hopper kernels, by entry point (the
+    sharded path on more than one rank launches none, as the JAX
+    package's reaches no Pallas kernel)."""
     from ..ops import stencil_hopper
-    return dict(stencil_hopper.LAUNCHES_BY_ENTRY)
+    return stencil_hopper.launches_by_entry()
 
 
 def job_modules(device):

@@ -28,6 +28,17 @@ carried over.
 raises) and uses the plain PyTorch version, :func:`apply_plain`, for a
 tensor on the CPU.  ``LAUNCHES`` counts kernel launches, and
 ``LAUNCHES_BY_ENTRY`` counts them by entry point.
+
+The same library holds the BGS sweep's sub-block product
+(``csrc/stencil_block.cu``, which replaces no TPU kernel): a stencil
+sub-block A (27, a, b, l, m, n) of :data:`BLOCK_SHAPES` times x
+(b, l, m, n), in f32 or f64, with x's strides as they are.
+:func:`apply_block` launches it for a CUDA tensor (or raises) and
+takes the plain expression, :func:`apply_block_plain`, on the CPU;
+:func:`block_variant` names the entry point and layout a call takes.
+``BLOCK_LAUNCHES`` counts its launches by entry point, apart from
+``LAUNCHES``, and each launch adds to the program counter
+``stencil block launches``.
 """
 
 from __future__ import annotations
@@ -39,10 +50,13 @@ import subprocess
 
 import torch
 
-from .stencil import apply_stencil
+from ..utils import logging as log
+from .stencil import apply_stencil, windows
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "stencil_matvec.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_SRCS = [os.path.join(_CSRC, name)
+         for name in ("stencil_matvec.cu", "stencil_block.cu")]
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
@@ -65,14 +79,33 @@ ENTRIES = tuple(f"stencil_matvec_{tag}{wide}" for tag in _TAG.values()
 LAUNCHES = 0
 LAUNCHES_BY_ENTRY = dict.fromkeys(ENTRIES, 0)
 
+# the sub-block kernel: the (a, b) shapes it is built for (the sweep's
+# 2x2, 2x1 and 1x2 blocks, 1x1, the 2D saddle multigrid's 3x3 and the Teko
+# couplings' 4x2 and 2x4), its types, and the points a lane owns, one
+# 16-byte vector of coefficients in the row layout (the source's Vec)
+BLOCK_SHAPES = ((1, 1), (1, 2), (2, 1), (2, 2), (3, 3), (2, 4), (4, 2))
+_BLOCK_TAG = {torch.float32: "f32", torch.float64: "f64"}
+BLOCK_VEC = {torch.float32: 4, torch.float64: 2}
+BLOCK_ENTRIES = tuple(f"stencil_block_{tag}" for tag in _BLOCK_TAG.values())
+# launches made by apply_block, by entry point
+BLOCK_LAUNCHES = dict.fromkeys(BLOCK_ENTRIES, 0)
+
 _LIB = None
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
-    for name in LAUNCHES_BY_ENTRY:
-        LAUNCHES_BY_ENTRY[name] = 0
+    for counts in (LAUNCHES_BY_ENTRY, BLOCK_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launches_by_entry() -> dict:
+    """Launches of every entry point of the library since the last
+    :func:`reset_launches`: the stencil matvec's and the sub-block
+    kernel's."""
+    return {**LAUNCHES_BY_ENTRY, **BLOCK_LAUNCHES}
 
 
 def kernel_variant(dtype, l: int, m: int, n: int) -> str:
@@ -97,11 +130,13 @@ def general_launch(l: int, m: int, n: int) -> tuple[int, int, int]:
     return -(-(l * m * n) // (2 * WARP)), 6 // GENERAL_ROWS * WARP, 2
 
 
-def needed_coefficients(l: int, m: int, n: int, periodic: bool) -> int:
-    """Coefficients of the 972 * l*m*n whose neighbour lies in the grid:
-    the others multiply a zero, and neither kernel reads them."""
-    return 36 * (3 * l - 2) * (3 * m - 2) * (3 * n if periodic
-                                             else 3 * n - 2)
+def needed_coefficients(l: int, m: int, n: int, periodic: bool,
+                        a: int = 6, b: int = 6) -> int:
+    """Coefficients of the 27 * a*b * l*m*n of an (a, b) block whose
+    neighbour lies in the grid: the others multiply a zero, and no kernel
+    reads them."""
+    return a * b * (3 * l - 2) * (3 * m - 2) * (3 * n if periodic
+                                                else 3 * n - 2)
 
 
 def _nvcc() -> str:
@@ -112,17 +147,19 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile the kernel library from the repository's source (once per
-    content hash of source + flags) and return its path; what nvcc and
+    """Compile the kernel library from the repository's sources (once per
+    content hash of sources + flags) and return its path; what nvcc and
     ptxas said is kept beside it as ``<path>.log``."""
-    with open(_SRC, "rb") as fh:
-        src = fh.read()
+    src = b""
+    for path in _SRCS:
+        with open(path, "rb") as fh:
+            src += fh.read()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = os.path.join(BUILD_DIR, f"libstencil_matvec-{key[:16]}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *_SRCS]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
@@ -146,6 +183,14 @@ def _lib():
             geometry = [] if name.endswith("_wide") else [ctypes.c_int] * 3
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
                 + geometry + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in BLOCK_ENTRIES:
+            fn = getattr(lib, name)
+            # A and its strides of p, a, b; x and its four strides; y;
+            # a, b, l, m, n, periodic, the row layout; the stream
+            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 \
+                + [ctypes.c_void_p] + [ctypes.c_longlong] * 4 \
+                + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -204,4 +249,74 @@ def apply_stencil_prepared(AnK: torch.Tensor, x: torch.Tensor, *,
                            f"(cudaError {err})")
     LAUNCHES += 1
     LAUNCHES_BY_ENTRY[entry] += 1
+    return y
+
+
+def block_variant(A: torch.Tensor, x: torch.Tensor) -> tuple[str, bool]:
+    """The entry point that the sub-block product of A (27, a, b, l, m, n)
+    and x (b, l, m, n) takes, and whether it takes the row layout (a grid
+    row is a whole number of :data:`BLOCK_VEC` points and A's planes
+    start on 16-byte boundaries).  Raises for what the kernel does not take:
+    a type other than f32 or f64, A and x of two types, a shape outside
+    :data:`BLOCK_SHAPES`, or planes of A that are not contiguous."""
+    if A.dtype not in _BLOCK_TAG or x.dtype != A.dtype:
+        raise TypeError(f"stencil_hopper: sub-block product of {A.dtype} "
+                        f"and {x.dtype} (f32 or f64, one type)")
+    if A.dim() != 6 or A.shape[0] != 27 \
+            or tuple(A.shape[1:3]) not in BLOCK_SHAPES:
+        raise ValueError(f"stencil_hopper: sub-block shape "
+                         f"{tuple(A.shape)} (27, a, b, l, m, n) with "
+                         f"(a, b) in {BLOCK_SHAPES}")
+    _, a, b, l, m, n = A.shape
+    if tuple(x.shape) != (b, l, m, n):
+        raise ValueError(f"stencil_hopper: x {tuple(x.shape)} does not "
+                         f"match the sub-block {tuple(A.shape)}")
+    if min(l, m, n) < 1 or l * m * n >= 2 ** 31 - 64:
+        raise ValueError(f"stencil_hopper: grid {(l, m, n)}")
+    if any(size > 1 and st != want for size, st, want in zip(
+            A.shape[3:], A.stride()[3:], (m * n, n, 1))):
+        raise ValueError(f"stencil_hopper: the (l, m, n) planes of A "
+                         f"must be contiguous (strides {A.stride()})")
+    vec = BLOCK_VEC[A.dtype]
+    row = A.data_ptr() % 16 == 0 and n % vec == 0 and all(
+        size == 1 or st % vec == 0
+        for size, st in zip(A.shape[:3], A.stride()[:3]))
+    return f"stencil_block_{_BLOCK_TAG[A.dtype]}", row
+
+
+def apply_block_plain(A: torch.Tensor, x: torch.Tensor, *, periodic: bool,
+                      w=None) -> torch.Tensor:
+    """Plain PyTorch version of the sub-block kernel: A times the 27
+    windows of x (w, where a product of the same x took them already),
+    summed over p and b."""
+    w = windows(x, periodic) if w is None else w
+    return (A * w.unsqueeze(1)).sum(dim=(0, 2))
+
+
+def apply_block(A: torch.Tensor, x: torch.Tensor, *, periodic: bool,
+                w=None) -> torch.Tensor:
+    """y[a] = sum_{p,b} A[p,a,b] * shift_p(x[b]) for a stencil sub-block A
+    (27, a, b, l, m, n) and x (b, l, m, n); output (a, l, m, n).
+
+    CPU tensors take :func:`apply_block_plain` (on the windows w, where
+    given); CUDA tensors launch the entry point that
+    :func:`block_variant` names, with x's strides as they are, or
+    raise."""
+    if A.device.type == "cpu" and x.device.type == "cpu":
+        return apply_block_plain(A, x, periodic=periodic, w=w)
+    if A.device.type != "cuda" or x.device != A.device:
+        raise ValueError("stencil_hopper: A and x must be on one CUDA "
+                         f"device (got {A.device}, {x.device})")
+    entry, row = block_variant(A, x)
+    _, a, b, l, m, n = A.shape
+    y = torch.empty((a, l, m, n), dtype=A.dtype, device=A.device)
+    err = getattr(_lib(), entry)(
+        A.data_ptr(), *A.stride()[:3], x.data_ptr(), *x.stride(),
+        y.data_ptr(), a, b, l, m, n, int(periodic), int(row),
+        torch.cuda.current_stream(A.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil_hopper: {entry} launch failed "
+                           f"(cudaError {err})")
+    BLOCK_LAUNCHES[entry] += 1
+    log.count("stencil block launches")
     return y

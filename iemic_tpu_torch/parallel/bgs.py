@@ -65,6 +65,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.ocean.ocean import _to_dtype
+from ..ops import stencil_hopper
 from ..ops.stencil import NP, offsets
 from ..solvers import bgs
 from ..solvers import mg as _mg
@@ -152,7 +153,7 @@ class PartitionedGrid(_mg.Whole):
         return self._allreduce if self._many else None
 
     # -- stencil products ----------------------------------------------
-    def windows(self, x: torch.Tensor) -> torch.Tensor:
+    def halo_windows(self, x: torch.Tensor) -> torch.Tensor:
         """The 27 windows of this rank's block x (nv, l, ml, nl), its
         neighbours' halo exchanged, laid out as ``ops.stencil.windows``
         lays out the whole grid's."""
@@ -162,6 +163,24 @@ class PartitionedGrid(_mg.Whole):
         w = xp.reshape(nv, -1).index_select(
             -1, _padded_index(l, ml, nl, x.device))
         return w.reshape(nv, NP, l, ml, nl).movedim(-4, -5)
+
+    def windows(self, x: torch.Tensor) -> torch.Tensor | None:
+        """:meth:`halo_windows`, for :meth:`st` to share between products
+        of x; None for one rank on the card, where st's kernel reads x
+        itself."""
+        return None if x.is_cuda and not self._many \
+            else self.halo_windows(x)
+
+    def st(self, A: torch.Tensor, x: torch.Tensor, w=None) -> torch.Tensor:
+        """The stencil product A x on this rank's block: for one rank on
+        the card ``mg.Whole``'s kernel, so that one rank sweeps as the
+        serial sweep does; else the plain expression over the halo
+        windows (w, where another product of x took them already)."""
+        if x.is_cuda and not self._many:
+            return super().st(A, x)
+        return stencil_hopper.apply_block_plain(
+            A, x, periodic=self.periodic,
+            w=self.halo_windows(x) if w is None else w)
 
     # -- sums over the grid --------------------------------------------
     def sum(self, t: torch.Tensor) -> torch.Tensor:

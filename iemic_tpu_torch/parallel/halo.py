@@ -134,10 +134,12 @@ def make_sharded_stencil_apply(domain):
     The analog of the reference's Epetra CSR SpMV with ghost import
     (matetc.F90:147-166 + TRIOS importers): each rank exchanges 1-deep
     halos and contracts its 27 local windows (``ops.stencil.
-    apply_stencil``'s product, on the padded block), the partitioned
-    sweep's product (``.bgs.PartitionedGrid.st``)."""
+    apply_stencil``'s product, on the padded block) in plain PyTorch."""
+    from ..ops.stencil_hopper import apply_block_plain
     from .bgs import PartitionedGrid
-    return PartitionedGrid(domain).st
+    grid = PartitionedGrid(domain)
+    return lambda An, x: apply_block_plain(
+        An, x, periodic=domain.periodic, w=grid.halo_windows(x))
 
 
 def _check_device(ocean, domain) -> None:

@@ -35,6 +35,7 @@ sweep's order of operations stays here, once.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -309,6 +310,15 @@ def build(An: torch.Tensor, landm: np.ndarray, *, periodic: bool,
         ts_icoeff=icoeff, ts_iidx=iidx, ts_iscale=iscale)
 
 
+@functools.cache
+def _side_stream(device: int) -> torch.cuda.Stream:
+    """The one stream on which every recording warms up and captures:
+    PyTorch keeps a cuBLAS workspace (32 MiB on an H100) for each
+    stream it ever used, so a new stream per recording held that much
+    more card memory with every factor set."""
+    return torch.cuda.Stream(device)
+
+
 class _Graphed:
     """fn(v) recorded once as a CUDA graph over a static input buffer;
     each call copies v in, replays, and returns a copy of the output.
@@ -321,13 +331,13 @@ class _Graphed:
     @log.timed("BGS: record graphs", sync=True)
     def __init__(self, fn, example: torch.Tensor):
         self.inp = example.clone()
-        side = torch.cuda.Stream()
+        side = _side_stream(torch.cuda.current_device())
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn(self.inp)        # warm-up: lazy index tables, cuBLAS handles
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, stream=side):
             self.out = fn(self.inp)
         log.count("graphs recorded")
 

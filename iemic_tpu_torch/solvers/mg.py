@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import stencil_hopper
 from ..ops.stencil import offsets, windows
 from .preconditioner import (inv, column_blocks, to_columns,
                              from_columns)
@@ -184,14 +185,18 @@ class Whole:
     def __init__(self, periodic: bool):
         self.periodic = periodic
 
-    def windows(self, x: torch.Tensor) -> torch.Tensor:
-        return windows(x, self.periodic)
+    def windows(self, x: torch.Tensor) -> torch.Tensor | None:
+        """The 27 windows of x, for :meth:`st` to share between products
+        of x; None on the card, where st's kernel reads x itself."""
+        return None if x.is_cuda else windows(x, self.periodic)
 
     def st(self, A: torch.Tensor, x: torch.Tensor, w=None) -> torch.Tensor:
-        """The stencil product A x (``ops.stencil.apply_stencil``); w, the
-        windows of x, where another product took them already."""
-        w = self.windows(x) if w is None else w
-        return (A * w.unsqueeze(1)).sum(dim=(0, 2))
+        """The stencil product A x of a sub-block A
+        (``ops.stencil_hopper.apply_block``: the Hopper kernel on the
+        card, the plain expression on the CPU); w, the windows of x,
+        where another product took them already."""
+        return stencil_hopper.apply_block(A, x, periodic=self.periodic,
+                                          w=w)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         return torch.sum(t)

@@ -16,7 +16,7 @@ import torch
 from iemic_tpu_torch import interop
 from iemic_tpu_torch.models.ocean import Ocean
 from iemic_tpu_torch.ops import stencil_hopper
-from iemic_tpu_torch.solvers import bgs
+from iemic_tpu_torch.solvers import bgs, mg
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
@@ -175,6 +175,75 @@ def test_general_kernel_equals_wide_on_card(dtype, periodic):
         assert torch.equal(wide, general)
 
 
+# the sub-block kernel at the ocean cell's grid in f32, the coupled
+# cell's in f64, and a row of 97 in both
+BLOCK_GRIDS = [((12, 38, 96), "float32"), ((12, 32, 64), "float64"),
+               ((12, 38, 97), "float32"), ((12, 38, 97), "float64")]
+BLOCK_TOL = {"float32": 1e-5, "float64": 1e-13}
+
+
+def _block_matches_plain(A, x, periodic):
+    """One launch of the sub-block kernel against its plain version: each
+    value within BLOCK_TOL of |A| |x| at its point.  Both sum at most
+    27 b = 108 products in the working type, each rounded once, in other
+    orders: together at most 216 units of rounding (6e-8 in f32, 1.1e-16
+    in f64) of that sum of magnitudes, 1.3e-5 and 2.4e-14 at the worst,
+    and rounding errors that add in random signs come to about the
+    square root of that count, under 1e-6 and 2e-15."""
+    entry, _ = stencil_hopper.block_variant(A, x)
+    before = stencil_hopper.BLOCK_LAUNCHES[entry]
+    y = stencil_hopper.apply_block(A, x, periodic=periodic)
+    assert stencil_hopper.BLOCK_LAUNCHES[entry] == before + 1
+    ref = stencil_hopper.apply_block_plain(A, x, periodic=periodic)
+    scale = stencil_hopper.apply_block_plain(A.abs(), x.abs(),
+                                             periodic=periodic)
+    assert y.dtype == A.dtype and y.shape == ref.shape
+    tol = BLOCK_TOL[str(A.dtype).removeprefix("torch.")]
+    assert bool(((y - ref).abs() <= tol * scale).all())
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("ab", [(1, 1), (1, 2), (2, 1), (2, 2)])
+@pytest.mark.parametrize("shape,dtype", BLOCK_GRIDS)
+def test_block_kernel_matches_plain_on_card(shape, dtype, ab, periodic):
+    """Every sub-block shape of the sweep against the plain version, in
+    both layouts (A on and off its 16-byte boundary; a row of 97 takes
+    the general one either way), with x a tensor and a stride-0 expand
+    of one (m, n) field (the saddle's lifted pressure)."""
+    t = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a, b = ab
+    A = torch.randn((27, a, b, *shape), generator=g, device="cuda", dtype=t)
+    off = torch.empty(A.numel() + 1, device="cuda",
+                      dtype=t)[1:].view_as(A).copy_(A)
+    x = torch.randn((b, *shape), generator=g, device="cuda", dtype=t)
+    lifted = torch.randn(shape[1:], generator=g, device="cuda",
+                         dtype=t).expand(b, *shape)
+    row = shape[2] % stencil_hopper.BLOCK_VEC[t] == 0
+    assert stencil_hopper.block_variant(A, x)[1] == row
+    assert not stencil_hopper.block_variant(off, x)[1]
+    for coeffs in (A, off):
+        for v in (x, lifted):
+            _block_matches_plain(coeffs, v, periodic)
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("ab", [(3, 3), (2, 4), (4, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_block_kernel_other_shapes_on_card(dtype, ab, periodic):
+    """The 2D saddle multigrid's and the Teko couplings' sub-blocks on
+    the 2DMOC fixture's 6x6x3 grid."""
+    t = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    A = torch.randn((27, *ab, 6, 6, 3), generator=g, device="cuda", dtype=t)
+    x = torch.randn((ab[1], 6, 6, 3), generator=g, device="cuda", dtype=t)
+    _block_matches_plain(A, x, periodic)
+
+
 @pytest.mark.cuda
 @needs_card
 def test_ocean_default_device_is_the_card():
@@ -238,14 +307,36 @@ def _island(device, solver_params):
     return o
 
 
+# sub-block products of one 3D saddle iteration: the operator's three
+# (A_uvuv, A_uvp, A_puv) and its preconditioner's, by scheme
+SADDLE_PRODUCTS = {"SI": 3 + 4, "SL": 3 + 2, "SR": 3 + 7}
+
+
 @pytest.mark.cuda
 @needs_card
 @pytest.mark.parametrize("scheme", ["SL", "SR"])
-def test_graphed_sweep_schemes_match_eager_on_card(scheme):
+def test_graphed_sweep_schemes_match_eager_on_card(scheme, monkeypatch):
     """The graphed saddle iteration depends on the scheme: the model's f32
     sweep with SL and with SR, recorded on the first call and replayed on
     the second, against the same sweep launched op by op; and the graphs
-    of one factor set are kept per scheme."""
+    of one factor set are kept per scheme.  Every sub-block product runs
+    the Hopper kernel: the recording launches it for each product of the
+    saddle iteration twice (warm-up and capture), a replayed sweep only
+    for the products outside the saddle, the replayed operator's graph
+    holds the kernel, and no product on the card gathers windows or takes
+    the plain expression."""
+    on_card = []
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            on_card.extend(a.is_cuda for a in args
+                           if isinstance(a, torch.Tensor))
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(mg, "windows", counted(mg.windows))
+    monkeypatch.setattr(stencil_hopper, "apply_block_plain",
+                        counted(stencil_hopper.apply_block_plain))
     o = _island("cuda", {"Preconditioning": "BGS", "Precision": "Mixed",
                          "Preconditioner": {"Saddlepoint iterations": 5,
                                             "Saddlepoint scheme": scheme}})
@@ -256,12 +347,58 @@ def test_graphed_sweep_schemes_match_eager_on_card(scheme):
     for _ in range(2):
         torch.testing.assert_close(o._prec_apply(f32, r), eager)
     graphs = bgs.SweepGraphs(f32)
+
+    def launches():
+        return stencil_hopper.BLOCK_LAUNCHES["stencil_block_f32"]
+
     for sch in ("SI", scheme):
-        torch.testing.assert_close(
-            bgs.apply(f32, r, periodic=False, nit_spp=5, spp_scheme=sch,
-                      graphs=graphs),
-            bgs.apply(f32, r, periodic=False, nit_spp=5, spp_scheme=sch))
+        n0 = launches()
+        recorded = bgs.apply(f32, r, periodic=False, nit_spp=5,
+                             spp_scheme=sch, graphs=graphs)
+        n1 = launches()
+        replayed = bgs.apply(f32, r, periodic=False, nit_spp=5,
+                             spp_scheme=sch, graphs=graphs)
+        n2 = launches()
+        for got in (recorded, replayed):
+            torch.testing.assert_close(
+                got, bgs.apply(f32, r, periodic=False, nit_spp=5,
+                               spp_scheme=sch))
+        assert n2 - n1 > 0
+        assert (n1 - n0) - (n2 - n1) == 2 * SADDLE_PRODUCTS[sch]
     assert set(graphs.recorded) == {"SI", scheme}
+    mv_graph = graphs.recorded["SI"][0]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        mv_graph(torch.zeros_like(mv_graph.inp))
+        torch.cuda.synchronize()
+    assert any("stencil_block_kernel" in e.key
+               for e in prof.key_averages())
+    assert not any(on_card)
+    mg.Whole(False).windows(r.cpu()[:2])     # the counter sees the CPU's
+    assert on_card == [False]
+
+
+@pytest.mark.cuda
+@needs_card
+def test_graph_recordings_keep_card_memory_flat():
+    """Every factor set records its sweep graphs anew; once the first
+    recording has made what lasts (the side stream's cuBLAS workspace, the
+    index tables), further recordings, each freed with its factor set,
+    leave the card's allocated memory where it was."""
+    o = _island("cuda", {"Preconditioning": "BGS", "Precision": "Mixed",
+                         "Preconditioner": {"Saddlepoint iterations": 5}})
+    _, f32 = o._get_prec_factors()
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        tuple(o.state.shape)), dtype=torch.float32, device="cuda")
+    allocated = []
+    for _ in range(4):
+        fac = f32._replace()
+        graphs = bgs.SweepGraphs(fac)
+        bgs.apply(fac, r, periodic=False, nit_spp=5, graphs=graphs)
+        del fac, graphs
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+    assert allocated[1:] == allocated[1:2] * 3, allocated
 
 
 @pytest.mark.cuda

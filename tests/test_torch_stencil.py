@@ -157,3 +157,108 @@ def test_stencil_to_csr_matches_jax():
         got = tst.stencil_to_csr(torch.as_tensor(An), periodic=periodic)
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a, b)
+
+
+# the sub-block kernel's dispatch: type, (a, b), grid -> entry point and
+# layout.  The row layout wants a grid row of n a whole number of 16-byte
+# vectors (4 points in f32, 2 in f64).
+BLOCK_VARIANTS = [
+    ("float32", (2, 2), (12, 38, 96), "stencil_block_f32", True),
+    ("float32", (2, 1), (12, 38, 97), "stencil_block_f32", False),
+    ("float32", (1, 2), (3, 5, 7), "stencil_block_f32", False),
+    ("float32", (3, 3), (1, 2, 2), "stencil_block_f32", False),
+    ("float64", (2, 2), (12, 32, 64), "stencil_block_f64", True),
+    ("float64", (1, 1), (3, 5, 7), "stencil_block_f64", False),
+    ("float64", (4, 2), (2, 3, 2), "stencil_block_f64", True),
+    ("float64", (2, 4), (1, 1, 1), "stencil_block_f64", False),
+]
+
+
+@pytest.mark.parametrize("dtype,ab,shape,entry,row", BLOCK_VARIANTS)
+def test_block_variant(dtype, ab, shape, entry, row):
+    """The entry point and layout of a sub-block product are a pure
+    function of type, shape and A's alignment: A one element off its
+    16-byte boundary takes the general layout, and a block whose (p, a,
+    b) strides are permuted (the rho/mu transform's einsum) but whose
+    planes are contiguous keeps the row layout."""
+    t = getattr(torch, dtype)
+    A = torch.zeros((27, *ab, *shape), dtype=t)
+    x = torch.zeros((ab[1], *shape), dtype=t)
+    assert stencil_hopper.block_variant(A, x) == (entry, row)
+    assert entry in stencil_hopper.BLOCK_ENTRIES
+    off = torch.zeros(A.numel() + 1, dtype=t)[1:].view_as(A)
+    assert stencil_hopper.block_variant(off, x) == (entry, False)
+    perm = torch.zeros((ab[0], 27, ab[1], *shape), dtype=t).movedim(1, 0)
+    assert stencil_hopper.block_variant(perm, x) == (entry, row)
+
+
+def test_block_variant_refuses():
+    """What the kernel does not take raises, on the CPU as on the card:
+    another type (no fall-back to the plain version), two types, a shape
+    it is not built for, an x that does not match, planes that are not
+    contiguous; and apply_block refuses a tensor on neither the CPU nor
+    a CUDA device."""
+    f32 = torch.zeros((27, 2, 2, 3, 4, 8))
+    x = torch.zeros((2, 3, 4, 8))
+    for t in (torch.bfloat16, torch.float16, torch.int64):
+        with pytest.raises(TypeError):
+            stencil_hopper.block_variant(f32.to(t), x.to(t))
+    with pytest.raises(TypeError):
+        stencil_hopper.block_variant(f32, x.double())
+    for ab in ((6, 6), (5, 1), (1, 3)):
+        with pytest.raises(ValueError):
+            stencil_hopper.block_variant(torch.zeros((27, *ab, 3, 4, 8)),
+                                         torch.zeros((ab[1], 3, 4, 8)))
+    with pytest.raises(ValueError):
+        stencil_hopper.block_variant(f32, x[:1])
+    with pytest.raises(ValueError):
+        stencil_hopper.block_variant(f32.transpose(-1, -2),
+                                     x.transpose(-1, -2))
+    with pytest.raises(ValueError):
+        stencil_hopper.apply_block(f32.to("meta"), x.to("meta"),
+                                   periodic=False)
+
+
+def test_launch_counters_cover_both_kernels():
+    """``launches_by_entry`` reads every entry point of both kernels, the
+    ranks' job returns it, and ``reset_launches`` zeroes both counters."""
+    from iemic_tpu_torch.main import multichip
+    stencil_hopper.LAUNCHES_BY_ENTRY["stencil_matvec_f32_wide"] += 2
+    stencil_hopper.BLOCK_LAUNCHES["stencil_block_f64"] += 3
+    counts = multichip.job_launches("cpu")
+    assert set(counts) == set(stencil_hopper.ENTRIES) | set(
+        stencil_hopper.BLOCK_ENTRIES)
+    assert counts["stencil_block_f64"] >= 3
+    assert counts["stencil_matvec_f32_wide"] >= 2
+    stencil_hopper.reset_launches()
+    assert not any(stencil_hopper.launches_by_entry().values())
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("ab", stencil_hopper.BLOCK_SHAPES)
+def test_whole_st_on_cpu_is_the_plain_expression(ab, periodic):
+    """On CPU tensors ``mg.Whole.st`` is the plain expression, bit for
+    bit, with its own windows and with windows shared from
+    ``Whole.windows``, and launches nothing; the f64 product agrees with
+    the JAX package's sub-block product (``_block_apply``'s
+    apply_stencil) to f64 round-off of 27 b-term sums."""
+    from iemic_tpu_torch.solvers.mg import Whole
+    rng = np.random.default_rng(5)
+    a, b = ab
+    A = rng.standard_normal((27, a, b, 3, 5, 7))
+    x = rng.standard_normal((b, 3, 5, 7))
+    g = Whole(periodic)
+    before = dict(stencil_hopper.BLOCK_LAUNCHES)
+    for t in (torch.float64, torch.float32):
+        At, xt = torch.as_tensor(A, dtype=t), torch.as_tensor(x, dtype=t)
+        ref = (At * tst.windows(xt, periodic).unsqueeze(1)).sum(dim=(0, 2))
+        w = g.windows(xt)
+        assert torch.equal(w, tst.windows(xt, periodic))
+        assert torch.equal(g.st(At, xt), ref)
+        assert torch.equal(g.st(At, xt, w), ref)
+    assert stencil_hopper.BLOCK_LAUNCHES == before
+    y_ref = np.asarray(jst.apply_stencil(jnp.asarray(A), jnp.asarray(x),
+                                         periodic=periodic))
+    y = g.st(torch.as_tensor(A), torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(y, y_ref, rtol=1e-13,
+                               atol=1e-13 * np.abs(y_ref).max())
